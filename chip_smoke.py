@@ -7,21 +7,43 @@ Phases (any failure exits non-zero; the last line is printed only on
 success):
 
 0. set-up: card name and power limit, the timed nvcc build of the fused
-   step kernel (mops_tpu_torch/csrc/stage_kernel.cu -> mops_tpu_torch/_build/).
-1. kernel check: the CUDA kernel against its plain PyTorch version on the
-   same inputs at the slice's shape (K = the mesh's maxEdges, L = 60, all
-   particles), RK4 and Euler, float32 and float64, with out-of-cell,
-   below-bottom, above-surface and dead lanes; per-step times of both.
-2. main path: synth -> preprocess (on the card) -> CellSearch ->
-   run_advection (kernel path) -> finalize_trajectories at the slice size:
+   step kernels (mops_tpu_torch/csrc/stage_kernel.cu ->
+   mops_tpu_torch/_build/).
+1. kernel checks at the slice's shape (K = the mesh's maxEdges, L = 60, all
+   particles), each kernel against its plain PyTorch version on the same
+   inputs, float32 and float64, RK4 and Euler, with out-of-cell,
+   below-bottom, above-surface and dead lanes; per-step times of both:
+   K1 (streamline); K2 (pathline: two snapshots, 0 and 2 attributes, stage
+   alphas mid-run and near 1, where the clip engages); K3 and K4 (their
+   layer-window forms, W = 8, windows placed around each lane's layer and
+   moved off it on some lanes so that they miss).
+2. the main paths, each driven with every launch count set to 0 just
+   before it and read just after: synth -> preprocess (on the card) ->
+   CellSearch -> run_advection -> finalize_trajectories at the slice size,
    a jittered Voronoi sphere of 236,853 cells (EC30to60E2r2's count) with
-   60 layers, the crossing-regime solid-body field, 400x400 global seeds
-   at depths 10..500 m, dt 120 s for one day, a record every 360 s, float32.
-3. gate: the first 20 steps through the kernel path against the plain
-   torch path on the card, in float32 and float64.
-4. profile: torch.profiler over a 30-step run of the kernel path, in
+   60 layers and 400x400 global seeds at depths 10..500 m, float32:
+   2a. streamline, the default (layer-window) path, K3: the crossing-regime
+       solid-body field, dt 120 s for one day, a record every 360 s;
+   2b. the same through the full-column kernel (use_window=False), K1;
+   2c. pathline, the default path, K4: the reference's pathline tutorial
+       (tutorial/pathLine.cpp), two snapshots at ocean speeds (solid-body
+       rotation at 3e-7 and 3.6e-7 rad/s, about 1.9 and 2.3 m/s at the
+       equator) with temperature and salinity, RK4, dt 600 s for one month
+       (4,320 steps), a record every 6 h;
+   2d. the same through the full-column kernel, K2, and the two pathline
+       runs held against each other.
+3. gate: the first 20 steps through both kernel paths against the plain
+   torch path on the card, streamline and pathline, float32 and float64.
+4. profile: torch.profiler over a 30-step run of each kernel path, in
    float32 and float64: the device's busy time, its idle share and the
    time per device kernel (PERF.md, "Where the time goes").
+
+The line before the card's name lists each kernel with its launches on
+its main path, its time and its plain version's time at the slice shape,
+and its bound: the larger of the bytes the step must move (each input
+read once, each output written once, counted from this run's start
+inputs) over the card's memory rate and the operations it does over the
+card's peak rate.
 """
 
 import json
@@ -37,14 +59,29 @@ import time
 # cancellation costs ~1e3 x float32 epsilon, so hvel and wvel are held to
 # 1e-4 of their largest magnitude.  A lane on a cell edge or a layer
 # interface may flip its containment/guard test under one rounding
-# difference: at most 1e-4 of the lanes may disagree on ok, and those lanes
-# are left out of the value comparison.
+# difference: at most 1e-4 of the lanes may disagree on ok (or, for the
+# window kernels, on the layer or the miss flag), and those lanes are left
+# out of the value comparison.  ok is the AND of four stages, so a stage
+# that flips while another fails on both sides leaves ok equal but the
+# averaged velocity different: such lanes beyond tolerance count against
+# the same budget, and even they must stay within the output's largest
+# magnitude (for positions: the largest step, max |hvel| * |dt|).
 F32_POS_TOL = 2.0
 F32_REL_TOL = 1e-4
 F32_OK_FLIPS = 1e-4
 # Float64 tolerances: tests/test_pallas.py's (positions 1e-6 m, hvel
 # 1e-10 m/s, wvel 1e-12 m/s, ok equal).
 F64_TOL = (1e-6, 1e-10, 1e-12)
+# Attributes are Wachspress sums like the velocities: 1e-4 of their largest
+# magnitude at float32, and test_advect.py's pathline attribute tolerance
+# (1e-8) at float64.
+F64_ATTR_TOL = 1e-8
+
+# The card's peak rates for the bound (NVIDIA H100 SXM data sheet, at the
+# 700 W limit): HBM3 bytes/s and FP32/FP64 operations/s outside the tensor
+# cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12}
 
 # The slice: EC30to60E2r2's cell count and level count, a 400x400 global
 # seed grid, one day at dt 120 s.
@@ -53,6 +90,24 @@ N_LAYERS = 60
 SEED_SIDE = 400
 N_STEPS = 720
 PROFILE_STEPS = 30
+# The pathline tutorial's run (tutorial/pathLine.cpp): dt 10 min for one
+# month, a record every 6 h.  Its two snapshots turn at ocean speeds (3e-7
+# rad/s is 1.9 m/s at the equator, a strong current); the back one 1.2
+# times faster, as the second snapshot of scripts/bench_refscale.py:189-191.
+PATH_DT = 600
+PATH_STEPS = 4320
+PATH_RECORD = 6 * 3600
+PATH_OMEGA = 3e-7
+BACK_OMEGA = 3.6e-7
+# Layers per window of the window kernels (run_advection's default) and
+# lanes of the kernel check whose window is moved off their layer.
+WINDOW = 8
+# Share of alive lanes' pathline attribute records that must be non-zero.
+# A record is zero where every stage of its step failed, which at ocean
+# speeds happens to a particle that relocation leaves outside its cell's
+# polygon (it then stays there under FailMode.ZERO): about 1 % of lanes by
+# the month's end.
+ATTR_NONZERO = 0.98
 
 
 def fail(msg):
@@ -76,7 +131,9 @@ def smi_line():
 def device_breakdown(run):
     """Run ``run`` under torch.profiler; return the device's busy time (the
     union of its event spans), the window from its first event to its last,
-    and the summed time per event name, all in milliseconds."""
+    the summed time per event name, all in milliseconds, and the longest
+    idle gap as (ms, its start from the window's start in ms, the name of
+    the event after it)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -89,12 +146,139 @@ def device_breakdown(run):
     if not spans:
         fail("torch.profiler saw no device activity")
     busy, end, per_name = 0.0, spans[0][0], {}
+    gap = (0.0, 0.0, "")
     for start, stop, name in spans:
+        if start - end > gap[0]:
+            gap = (start - end, end - spans[0][0], name)
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
         per_name[name] = per_name.get(name, 0.0) + (stop - start)
     return (busy / 1e3, (end - spans[0][0]) / 1e3,
-            {k: v / 1e3 for k, v in per_name.items()})
+            {k: v / 1e3 for k, v in per_name.items()},
+            (gap[0] / 1e3, gap[1] / 1e3, gap[2]))
+
+
+def step_bound(mesh, sols, seeds, cells, depths, n_attrs, pathline, tag,
+               n_window=None):
+    """The least time one fused step could take on this card at the main
+    path's start inputs: (bound_ms, bound_by, bytes, operations).
+
+    Bytes: each input read once and each output written once.  Vertex rows
+    that several particles share count once: xyz (from the front table) and
+    the ztop every vertex a particle's cell uses, in each snapshot (the
+    whole column, or with ``n_window`` the window's layers at the start
+    position's window start plus the surface and bottom values), plus the
+    velocity (3), vertical velocity (1) and attribute values of each
+    distinct (vertex, layer) pair that the layers above and below the
+    particle's depth pick; pos, depth, nv and the nv vertex ids (and the
+    window start); the outputs.  The layers are those at the start position
+    (a stage whose position crosses a layer reads more, and a window miss
+    reads the full column, so this is a lower bound).  Operations: the
+    leading terms of the kernel's loops over four RK4 stages (geometry ~85
+    per vertex; per snapshot the profile 2*nv*(L or W) and the picks
+    2*nv*(8 + 2A))."""
+    import torch
+    from mops_tpu_torch import advect
+    from mops_tpu_torch.interp import wachspress_weights
+    from mops_tpu_torch.step import (_clamp_profile, _layer_search_binary,
+                                     _layer_search_linear, window_starts)
+    dev = mesh.device
+    real = mesh.dtype
+    size = torch.finfo(real).bits // 8
+    L = sols[0].vertex_ztop.shape[1]
+    vids, nv, _ = advect._gather_cell_vertices(
+        mesh, torch.as_tensor(cells, device=dev))
+    K = vids.shape[1]
+    valid = torch.arange(K, device=dev)[None, :] < nv[:, None]
+    vid = vids.long()
+    n_vert = int(torch.unique(vid[valid]).numel())
+    pos = torch.as_tensor(seeds, device=dev, dtype=real)
+    dn = -torch.as_tensor(depths, device=dev).to(real)
+    w = wachspress_weights(pos, mesh.vertex_xyz[vid], nv)
+    nbytes = n_vert * 3 * size
+    per_lane_ops = 85 * nv.double()
+    s = None
+    if n_window:
+        z = _clamp_profile(torch.einsum("nk,nkl->nl", w,
+                                        sols[0].vertex_ztop[vid]), True)
+        s = window_starts(_layer_search_binary(z, dn), L, n_window).long()
+    for sol in sols:
+        z = _clamp_profile(torch.einsum("nk,nkl->nl", w,
+                                        sol.vertex_ztop[vid]), True)
+        layer = _layer_search_linear(z, dn)[0] if pathline \
+            else _layer_search_binary(z, dn)
+        keys = torch.cat([(vid * L + (layer - 1)[:, None])[valid],
+                          (vid * L + layer[:, None])[valid]])
+        if n_window:
+            lw = s[:, None, None] + torch.arange(n_window, device=dev)
+            zkeys = (vid[:, :, None] * L + lw)[valid]
+            nbytes += (int(torch.unique(zkeys).numel()) + 2 * n_vert) * size
+            per_lane_ops += 2 * nv.double() * (n_window + 8 + 2 * n_attrs)
+        else:
+            nbytes += n_vert * L * size
+            per_lane_ops += 2 * nv.double() * (L + 8 + 2 * n_attrs)
+        nbytes += int(torch.unique(keys).numel()) * (3 + 1 + n_attrs) * size
+    n = len(seeds)
+    nbytes += n * (4 * size + 4) + 4 * int(nv.sum())             # inputs
+    nbytes += n * (7 * size + 1 + (3 * size if n_attrs else 0))  # outputs
+    if n_window:
+        nbytes += n * (4 + 4 + 1)                    # start in; layer, miss out
+    ops = 4 * float(per_lane_ops.sum())
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_OPS_PER_S[tag] * 1e3
+    return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops
+            else "operations", nbytes, ops)
+
+
+def compare_step(got, want, real, dt, flags=(3,), attr=None):
+    """Kernel vs plain outputs of one step on identical inputs.  ``got`` and
+    ``want`` are the wrappers' tuples: new_pos, hvel, wvel first; ``flags``
+    the indices of the outputs that must agree exactly (ok, and layer and
+    miss for the window kernels); ``attr`` the index of the attributes.
+
+    Returns (errs, tol, flips, outliers, passed, note): per value output the
+    largest difference over lanes that agree on every flag, the lanes that
+    disagree on a flag, the lanes beyond tolerance (float32), whether the
+    comparison passes, and the worst outlier lane's values."""
+    import torch
+    same = torch.ones_like(got[3], dtype=torch.bool)
+    for i in flags:
+        same &= got[i] == want[i]
+    flips = int((~same).sum())
+    idx = [0, 1, 2] + ([attr] if attr is not None else [])
+    errs, lane_err, scale = [], [], []
+    for i in idx:
+        a, b = got[i], want[i]
+        if not torch.equal(torch.isnan(a), torch.isnan(b)):
+            fail("kernel and plain disagree on NaN lanes")
+        d = (a - b).abs().nan_to_num(0.0)
+        d = d if d.ndim == 1 else d.amax(dim=1)
+        lane_err.append(torch.where(same, d, torch.zeros_like(d)))
+        errs.append(float(lane_err[-1].max()))
+        scale.append(float(b[same].abs().nan_to_num(0).max()))
+    n = len(same)
+    note = ""
+    if real == torch.float32:
+        tol = [F32_POS_TOL] + [F32_REL_TOL * x for x in scale[1:]]
+        cap = [scale[1] * abs(dt)] + scale[1:]
+        beyond = torch.zeros_like(same)
+        capped = True
+        for e, t, c in zip(lane_err, tol, cap):
+            beyond |= e > t
+            capped = capped and float(e.max()) <= c
+        outliers = int(beyond.sum())
+        passed = flips + outliers <= F32_OK_FLIPS * n and capped
+        if outliers:
+            j = int(torch.where(beyond, lane_err[1], torch.zeros_like(
+                lane_err[1])).argmax())
+            note = (f"; worst outlier lane {j}: ok {bool(got[3][j])} / "
+                    f"{bool(want[3][j])}, hvel {got[1][j].tolist()} / "
+                    f"{want[1][j].tolist()} (kernel / plain)")
+    else:
+        tol = list(F64_TOL) + ([F64_ATTR_TOL] if attr is not None else [])
+        outliers = 0
+        passed = flips == 0 and all(e <= t for e, t in zip(errs, tol))
+    return errs, tol, flips, outliers, passed, note
 
 
 def main():
@@ -106,14 +290,22 @@ def main():
     import mops_tpu_torch as mtt
     from mops_tpu_torch import advect
     from mops_tpu_torch.interp import wachspress_weights
-    from mops_tpu_torch.kernels import stage_kernel
-    from mops_tpu_torch.kernels.stage_kernel import (
-        fused_streamline_step, fused_streamline_step_plain, pack_vertex_table)
-    from mops_tpu_torch.step import _clamp_profile, _layer_search_binary
+    from mops_tpu_torch.kernels import stage_kernel as sk
+    from mops_tpu_torch.kernels.stage_kernel import pack_vertex_table
+    from mops_tpu_torch.step import (_clamp_profile, _layer_search_binary,
+                                     _layer_search_linear, window_starts)
 
     dev = torch.device("cuda")
     f32, f64 = torch.float32, torch.float64
     sync = torch.cuda.synchronize
+    kernels = {
+        "k1": sk.fused_streamline_step, "k2": sk.fused_pathline_step,
+        "k3": sk.fused_window_streamline_step,
+        "k4": sk.fused_window_pathline_step}
+
+    def reset_counts():
+        for fn in kernels.values():
+            fn.launches = 0
 
     # ---- phase 0: set-up --------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -124,10 +316,10 @@ def main():
         f"tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn tf32 {torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    lib_path = stage_kernel.build(verbose=True)
+    lib_path = sk.build(verbose=True)
     build_s = time.perf_counter() - t0
     log(f"[phase 0] kernel build {build_s:.2f} s -> {lib_path}")
-    log(stage_kernel.BUILD_LOG.strip())
+    log(sk.BUILD_LOG.strip())
 
     times = {}
 
@@ -144,12 +336,24 @@ def main():
     L = N_LAYERS
     mesh_h = timed("synth mesh", lambda: mtt.synth.build_voronoi_mesh(
         N_CELLS, jitter=0.05, seed=0, n_layers=L))
-    raw = timed("synth fields", lambda: mtt.synth.solid_body_fields(
-        mesh_h, n_layers=L, w_scale=1e-3, bathymetry_amp=0.5, shelf_lon=0.3,
-        omega_decay=1.0))
-    mesh32 = mesh_h.to(dev, f32)
-    sol32 = timed("preprocess f32 (card)",
-                  lambda: mtt.preprocess(mesh32, raw, dtype=f32))
+    field_kw = dict(n_layers=L, w_scale=1e-3, bathymetry_amp=0.5,
+                    shelf_lon=0.3, omega_decay=1.0)
+    raws = {
+        "stream": timed("synth fields", lambda: mtt.synth.solid_body_fields(
+            mesh_h, **field_kw)),
+        "front": timed("synth pathline front fields",
+                       lambda: mtt.synth.solid_body_fields(
+                           mesh_h, omega=PATH_OMEGA, **field_kw)),
+        "back": timed("synth pathline back fields",
+                      lambda: mtt.synth.solid_body_fields(
+                          mesh_h, omega=BACK_OMEGA, **field_kw))}
+    meshes = {f32: mesh_h.to(dev, f32), f64: mesh_h.to(dev, f64)}
+    sols = {}
+    for real, tag in ((f32, "f32"), (f64, "f64")):
+        for key, raw in raws.items():
+            sols[key, real] = timed(
+                f"preprocess {key} {tag} (card)",
+                lambda: mtt.preprocess(meshes[real], raw, dtype=real))
     seeds = mtt.seeding.generate_sample_points(mtt.SamplingSettings(
         sample_range=(SEED_SIDE + 1, SEED_SIDE + 1), lat_range=(-90, 90),
         lon_range=(-180, 180)))
@@ -158,15 +362,13 @@ def main():
     depths = mtt.seeding.linear_depth_profile(n, 10, 500)
     K = mesh_h.max_edges
     log(f"slice: {mesh_h.n_cells} cells, {mesh_h.n_vertices} vertices, "
-        f"K={K}, L={L}, {n} particles, {N_STEPS} steps")
-    if K > stage_kernel.K_MAX:
+        f"K={K}, L={L}, {n} particles, {N_STEPS} streamline steps, "
+        f"{PATH_STEPS} pathline steps")
+    if K > sk.K_MAX:
         fail(f"mesh maxEdges {K} above the kernel ceiling")
 
-    # ---- phase 1: kernel vs plain on identical inputs --------------------
-    log("[phase 1] kernel check at the slice shape")
-    mesh64 = mesh_h.to(dev, f64)
-    sol64 = timed("preprocess f64 (card)",
-                  lambda: mtt.preprocess(mesh64, raw, dtype=f64))
+    # ---- phase 1: every kernel vs its plain version ----------------------
+    log("[phase 1] kernel checks at the slice shape")
     idx = np.arange(n)
     cells_chk = cells.copy()
     coc = mesh_h.cells_on_cell.numpy()
@@ -177,17 +379,37 @@ def main():
     depth_chk[idx % 83 == 7] = 5.0                        # above the surface
     seeds_chk = seeds.copy()
     seeds_chk[idx % 1009 == 11] = np.nan                  # dead lanes
-    kernel_rows = {}
+    shift = np.where(idx % 61 == 17, WINDOW, np.where(idx % 61 == 29,
+                                                      -WINDOW, 0))
+    rows = {k: {} for k in kernels}
 
-    def step_inputs(mesh, sol, real):
+    def lane_inputs(real):
+        mesh = meshes[real]
         vids, nv, _ = advect._gather_cell_vertices(
             mesh, torch.as_tensor(cells_chk, device=dev))
-        table = pack_vertex_table(mesh.vertex_xyz, sol.vertex_ztop,
-                                  sol.vertex_velocity,
-                                  sol.vertex_vert_velocity)
         pos = torch.as_tensor(seeds_chk, device=dev, dtype=real)
         dn = torch.as_tensor(depth_chk, device=dev, dtype=real)
-        return pos, dn, nv, vids, table, L
+        return pos, dn, nv, vids
+
+    def table(sol, real, n_attrs=0):
+        attrs = advect.stacked_vertex_attrs(sol)[..., :n_attrs] \
+            if n_attrs else None
+        return pack_vertex_table(meshes[real].vertex_xyz, sol.vertex_ztop,
+                                 sol.vertex_velocity,
+                                 sol.vertex_vert_velocity, attrs)
+
+    def starts(pos, dn, nv, vids, tab):
+        """Window starts around each lane's layer, as run_advection places
+        them (timed), and the same moved a window away on some lanes so that
+        they miss (checked)."""
+        rows_ = tab[vids.long()]
+        w = wachspress_weights(pos, rows_[..., :3], nv)
+        z = _clamp_profile(torch.einsum("nk,nkl->nl", w,
+                                        rows_[..., 3:3 + L]), True)
+        s = window_starts(_layer_search_binary(z, dn), L, WINDOW)
+        moved = s.long() + torch.as_tensor(shift, device=dev)
+        return s.contiguous(), torch.clamp(moved, 0, L - WINDOW).to(
+            torch.int32).contiguous()
 
     def event_ms(fn, reps):
         fn()
@@ -200,162 +422,352 @@ def main():
         sync()
         return a.elapsed_time(b) / reps
 
+    def check(key, name, call, plain, dt, flags=(3,), attr=None,
+              timed_case=False, real=f32, timed_calls=None):
+        """Hold ``call`` against ``plain``; on the timed case, time both per
+        step (or the pair ``timed_calls``: the window kernels are timed at
+        the main path's window starts)."""
+        got = call()
+        sync()
+        want = plain()
+        sync()
+        errs, tol, flips, outliers, passed, note = compare_step(
+            got, want, real, dt, flags, attr)
+        n_ok = int(want[3].sum())
+        extra = f", {int(got[5].sum())} lanes missed" if 5 in flags else ""
+        log(f"  {key} {name}: max|d new_pos| {errs[0]:.3e} m, hvel "
+            f"{errs[1]:.3e} m/s, wvel {errs[2]:.3e} m/s"
+            + (f", attrs {errs[3]:.3e}" if attr is not None else "")
+            + f" (tol {', '.join(f'{t:.1e}' for t in tol)}); flag flips "
+            f"{flips}, lanes beyond tol {outliers}, ok lanes {n_ok}/{n}"
+            + extra + note)
+        if not passed:
+            fail(f"kernel check {key} {name} outside tolerance")
+        if n_ok == 0 or n_ok == n:
+            fail(f"kernel check {key} {name}: the edge lanes did not fail")
+        if attr is not None and not bool((got[attr][got[3], :2] != 0).all()):
+            fail(f"kernel check {key} {name}: zero attributes on ok lanes")
+        if 5 in flags and not 0 < int(got[5].sum()) < n // 2:
+            fail(f"kernel check {key} {name}: no lane missed its window")
+        if timed_case:
+            k_call, p_call = timed_calls or (call, plain)
+            ms = event_ms(k_call, 20)
+            plain_ms = event_ms(p_call, 3)
+            log(f"  per step at the slice shape, {key} {name}: kernel "
+                f"{ms:.3f} ms, plain {plain_ms:.3f} ms ({smi})")
+            if real == f32:
+                rows[key].update(max_abs_err=errs[0], ms=ms,
+                                 plain_ms=plain_ms)
+
+    mid = PATH_STEPS // 2
+    alpha_sets = {"mid": mid / PATH_STEPS,
+                  "near 1": (PATH_STEPS - 1) / PATH_STEPS}
     for real, tag in ((f32, "f32"), (f64, "f64")):
-        inputs = step_inputs(mesh32, sol32, f32) if real == f32 \
-            else step_inputs(mesh64, sol64, f64)
+        pos, dn, nv, vids = lane_inputs(real)
+        tab = table(sols["stream", real], real)
+        s0, s = starts(pos, dn, nv, vids, tab)
         for euler in (False, True):
             name = f"{tag} {'euler' if euler else 'rk4'}"
-            got = fused_streamline_step(*inputs, 120.0, euler=euler)
-            sync()
-            want = fused_streamline_step_plain(*inputs, 120.0, euler=euler)
-            sync()
-            ok_k, ok_p = got[3], want[3]
-            flips = int((ok_k != ok_p).sum())
-            same = ok_k == ok_p
-            errs = []
-            for a, b in zip(got[:3], want[:3]):
-                if not torch.equal(torch.isnan(a), torch.isnan(b)):
-                    fail(f"{name}: kernel and plain disagree on NaN lanes")
-                d = (a - b).abs().nan_to_num(0.0)
-                d = d[same] if d.ndim == 1 else d[same].amax(dim=1)
-                errs.append(float(d.max()))
-            scale = [1.0] + [float(b[same].abs().nan_to_num(0).max())
-                             for b in want[1:3]]
-            if real == f32:
-                tol = (F32_POS_TOL, F32_REL_TOL * scale[1],
-                       F32_REL_TOL * scale[2])
-                flip_ok = flips <= F32_OK_FLIPS * n
-            else:
-                tol, flip_ok = F64_TOL, flips == 0
-            n_ok = int(ok_p.sum())
-            log(f"  {name}: max|d new_pos| {errs[0]:.3e} m (tol {tol[0]:.1e}), "
-                f"max|d hvel| {errs[1]:.3e} m/s (tol {tol[1]:.1e}), "
-                f"max|d wvel| {errs[2]:.3e} m/s (tol {tol[2]:.1e}), "
-                f"ok flips {flips}, ok lanes {n_ok}/{n}")
-            if not flip_ok or any(e > t for e, t in zip(errs, tol)):
-                fail(f"kernel check {name} outside tolerance")
-            if n_ok == 0 or n_ok == n:
-                fail(f"kernel check {name}: the edge lanes did not fail")
-            if not euler:
-                ms = event_ms(lambda: fused_streamline_step(*inputs, 120.0), 20)
-                plain_ms = event_ms(
-                    lambda: fused_streamline_step_plain(*inputs, 120.0), 3)
-                log(f"  per step at the slice shape, {tag} RK4: kernel "
-                    f"{ms:.3f} ms, plain {plain_ms:.3f} ms ({smi})")
-                if real == f32:
-                    kernel_rows.update(max_abs_err=errs[0], ms=ms,
-                                       plain_ms=plain_ms)
-        del inputs, got, want
+            check("k1", name,
+                  lambda: sk.fused_streamline_step(pos, dn, nv, vids, tab, L,
+                                                   120.0, euler=euler),
+                  lambda: sk.fused_streamline_step_plain(
+                      pos, dn, nv, vids, tab, L, 120.0, euler=euler),
+                  120.0, timed_case=not euler, real=real)
+            check("k3", name,
+                  lambda: sk.fused_window_streamline_step(
+                      pos, dn, nv, vids, s, tab, L, WINDOW, 120.0,
+                      euler=euler),
+                  lambda: sk.fused_window_streamline_step_plain(
+                      pos, dn, nv, vids, s, tab, L, WINDOW, 120.0,
+                      euler=euler),
+                  120.0, flags=(3, 4, 5), timed_case=not euler, real=real,
+                  timed_calls=(
+                      lambda: sk.fused_window_streamline_step(
+                          pos, dn, nv, vids, s0, tab, L, WINDOW, 120.0),
+                      lambda: sk.fused_window_streamline_step_plain(
+                          pos, dn, nv, vids, s0, tab, L, WINDOW, 120.0)))
+        del tab
+        for n_attrs in (0, 2):
+            tf = table(sols["front", real], real, n_attrs)
+            tb = table(sols["back", real], real, n_attrs)
+            sp0, sp = starts(pos, dn, nv, vids, tf)
+            for euler in (False, True):
+                for a_name, a1 in alpha_sets.items():
+                    alphas = advect.stage_alphas(
+                        a1, PATH_DT, PATH_DT * PATH_STEPS, real)
+                    name = (f"{tag} {'euler' if euler else 'rk4'} "
+                            f"A={n_attrs} alphas {a_name} "
+                            f"{[float(a) for a in alphas]}")
+                    timed_case = not euler and n_attrs and a_name == "mid"
+                    check("k2", name,
+                          lambda: sk.fused_pathline_step(
+                              pos, dn, nv, vids, tf, tb, L, PATH_DT, alphas,
+                              euler=euler, n_attrs=n_attrs),
+                          lambda: sk.fused_pathline_step_plain(
+                              pos, dn, nv, vids, tf, tb, L, PATH_DT, alphas,
+                              euler=euler, n_attrs=n_attrs),
+                          PATH_DT, attr=4 if n_attrs else None,
+                          timed_case=timed_case, real=real)
+                    check("k4", name,
+                          lambda: sk.fused_window_pathline_step(
+                              pos, dn, nv, vids, sp, tf, tb, L, WINDOW,
+                              PATH_DT, alphas, euler=euler, n_attrs=n_attrs),
+                          lambda: sk.fused_window_pathline_step_plain(
+                              pos, dn, nv, vids, sp, tf, tb, L, WINDOW,
+                              PATH_DT, alphas, euler=euler, n_attrs=n_attrs),
+                          PATH_DT, flags=(3, 4, 5),
+                          attr=6 if n_attrs else None,
+                          timed_case=timed_case, real=real,
+                          timed_calls=(
+                              lambda: sk.fused_window_pathline_step(
+                                  pos, dn, nv, vids, sp0, tf, tb, L, WINDOW,
+                                  PATH_DT, alphas, n_attrs=n_attrs),
+                              lambda: sk.fused_window_pathline_step_plain(
+                                  pos, dn, nv, vids, sp0, tf, tb, L, WINDOW,
+                                  PATH_DT, alphas, n_attrs=n_attrs)))
+            del tf, tb
+        del pos, dn, nv, vids
 
-    # ---- phase 2: the main path ------------------------------------------
-    log("[phase 2] main path (f32, kernel)")
+    # ---- phase 2: the main paths -----------------------------------------
+    mesh32 = meshes[f32]
+
+    def layers_at(pos, depth, cell, sol, pathline=False):
+        vids, nv, _ = advect._gather_cell_vertices(mesh32, cell)
+        w = wachspress_weights(pos.to(f32), mesh32.vertex_xyz[vids.long()], nv)
+        z = torch.einsum("nk,nkl->nl", w, sol.vertex_ztop[vids.long()])
+        z, d = _clamp_profile(z, True), (-depth).to(f32)
+        return _layer_search_linear(z, d)[0] if pathline \
+            else _layer_search_binary(z, d)
+
+    seeds_d = torch.as_tensor(seeds, device=dev)
+    cells_d = torch.as_tensor(cells, device=dev)
+    depths_d = torch.as_tensor(depths, device=dev)
     cfg = mtt.TrajectorySettings(
         delta_t=120, simulation_duration=120 * N_STEPS, record_t=360,
         particle_depths=depths, fail_mode=mtt.FailMode.ZERO)
-    fused_streamline_step.launches = 0
-    raw_traj = timed("run_advection (kernel)", lambda: mtt.run_advection(
-        mesh32, sol32, seeds, cells, cfg))
-    launches = fused_streamline_step.launches
-    steps_per_s = n * cfg.n_steps / times["run_advection (kernel)"]
-    log(f"  kernel launches {launches} for {cfg.n_steps} steps; "
-        f"{steps_per_s:.6e} particle-RK4-steps/s end to end ({smi})")
-    if launches != cfg.n_steps:
-        fail(f"launch count {launches} != step count {cfg.n_steps}")
-    pts_h = raw_traj.points.cpu().numpy()
-    lines = timed("finalize_trajectories", lambda: mtt.finalize_trajectories(
-        seeds, pts_h, raw_traj.velocities.cpu().numpy(), cfg))
-    final = raw_traj.final_position.double()
-    if tuple(raw_traj.points.shape) != (n, cfg.n_records, 3) \
-            or len(lines) != n:
-        fail("output shapes")
-    alive = raw_traj.alive & torch.isfinite(final).all(dim=1)
-    radius = final[alive].norm(dim=1)
-    disp = (final - torch.as_tensor(seeds, device=dev)).norm(dim=1)[alive]
-    log(f"  alive and finite {int(alive.sum())}/{n}; radius "
-        f"[{float(radius.min()):.1f}, {float(radius.max()):.1f}] m; median "
-        f"displacement {float(disp.median()):.1f} m")
-    if not bool((radius - mtt.EARTH_RADIUS).abs().max() < 1e4):
-        fail("final radii are not about 6.371e6 m")
-    if not float(disp.median()) > 0.0:
-        fail("particles did not move")
+    pcfg = mtt.TrajectorySettings(
+        delta_t=PATH_DT, simulation_duration=PATH_DT * PATH_STEPS,
+        record_t=PATH_RECORD, particle_depths=depths,
+        fail_mode=mtt.FailMode.ZERO)
+    summary = {}
+    finals = {}
+    for label, key, pathline, windowed in (
+            ("2a streamline, layer window", "k3", False, True),
+            ("2b streamline, full column", "k1", False, False),
+            ("2c pathline, layer window", "k4", True, True),
+            ("2d pathline, full column", "k2", True, False)):
+        log(f"[phase {label}] main path (f32, {key.upper()})")
+        run_cfg = pcfg if pathline else cfg
+        front = sols["front" if pathline else "stream", f32]
+        back = sols["back", f32] if pathline else None
+        reset_counts()
+        raw_traj = timed(f"run_advection {label}", lambda: mtt.run_advection(
+            mesh32, front, seeds, cells, run_cfg, back=back,
+            use_window=windowed))
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        rate = n * run_cfg.n_steps / times[f"run_advection {label}"]
+        misses = 0 if raw_traj.window_misses is None \
+            else int(raw_traj.window_misses.sum())
+        log(f"  launches {counts} for {run_cfg.n_steps} steps; {rate:.6e} "
+            f"particle-RK4-steps/s end to end; window misses {misses} "
+            f"({100 * misses / (n * run_cfg.n_steps):.4f}% of particle-steps)"
+            f" ({smi})")
+        if counts[key] != run_cfg.n_steps or sum(counts.values()) \
+                != counts[key]:
+            fail(f"launch counts {counts}: {key} != {run_cfg.n_steps} steps")
+        if (raw_traj.window_misses is None) == windowed:
+            fail("window miss counts")
+        rows[key]["launches"] = counts[key]
+        summary[key] = {"particle_rk4_steps_per_s": rate,
+                        "window_misses": misses}
+        attrs = raw_traj.attrs.cpu().numpy() if pathline else None
+        lines = timed(f"finalize_trajectories {label}",
+                      lambda: mtt.finalize_trajectories(
+                          seeds, raw_traj.points.cpu().numpy(),
+                          raw_traj.velocities.cpu().numpy(), run_cfg,
+                          attrs=attrs, with_attrs=pathline))
+        final = raw_traj.final_position.double()
+        if tuple(raw_traj.points.shape) != (n, run_cfg.n_records, 3) \
+                or len(lines) != n \
+                or (raw_traj.attrs is not None) != pathline \
+                or (pathline and (raw_traj.attrs.shape
+                                  != raw_traj.points.shape
+                                  or lines[0].attrs is None)):
+            fail("output shapes")
+        alive = raw_traj.alive & torch.isfinite(final).all(dim=1)
+        radius = final[alive].norm(dim=1)
+        disp = (final - seeds_d).norm(dim=1)[alive]
+        layer0 = layers_at(seeds_d, depths_d, cells_d, front, pathline)
+        layer1 = layers_at(raw_traj.final_position, raw_traj.final_depth,
+                           raw_traj.final_cell, front, pathline)
+        changed = int(((layer0 != layer1) & alive).sum())
+        log(f"  alive and finite {int(alive.sum())}/{n}; radius "
+            f"[{float(radius.min()):.1f}, {float(radius.max()):.1f}] m; "
+            f"median displacement {float(disp.median()):.1f} m; lanes that "
+            f"changed layer {changed}")
+        if not bool((radius - mtt.EARTH_RADIUS).abs().max() < 1e4):
+            fail("final radii are not about 6.371e6 m")
+        if not float(disp.median()) > 0.0:
+            fail("particles did not move")
+        if changed == 0:
+            fail("no particle changed layer")
+        if pathline:
+            att = raw_traj.attrs[alive][:, :, :2]
+            nonzero = float((att != 0).all(dim=2).double().mean())
+            log(f"  attribute records finite: "
+                f"{bool(torch.isfinite(att).all())}, non-zero on alive "
+                f"lanes: {100 * nonzero:.3f}%; last record mean "
+                f"temperature {float(att[:, -1, 1].mean()):.4f}, salinity "
+                f"{float(att[:, -1, 0].mean()):.4f}")
+            if not bool(torch.isfinite(att).all()) or nonzero < ATTR_NONZERO:
+                fail("pathline attributes are not finite and non-zero")
+            summary[key]["attr_nonzero"] = nonzero
+            del att
+        finals[key] = final.cpu().numpy()
+        del raw_traj, lines
+    for a, b in (("k3", "k1"), ("k4", "k2")):
+        err = np.linalg.norm(finals[a] - finals[b], axis=1)
+        frac = float((err <= 100.0).mean())
+        log(f"  {a} path vs {b} path: {100 * frac:.3f}% of final positions "
+            f"within 100 m, median difference {float(np.median(err)):.3e} m")
+        if frac < 0.995:
+            fail(f"the window path {a} left the full-column path {b}")
+        summary[a][f"final_within_100m_of_{b}"] = frac
 
-    def layers_at(pos, depth, cell):
-        vids, nv, _ = advect._gather_cell_vertices(mesh32, cell)
-        w = wachspress_weights(pos.to(f32), mesh32.vertex_xyz[vids.long()], nv)
-        z = torch.einsum("nk,nkl->nl", w, sol32.vertex_ztop[vids.long()])
-        return _layer_search_binary(_clamp_profile(z, True), (-depth).to(f32))
-
-    layer0 = layers_at(torch.as_tensor(seeds, device=dev),
-                       torch.as_tensor(depths, device=dev),
-                       torch.as_tensor(cells, device=dev))
-    layer1 = layers_at(raw_traj.final_position, raw_traj.final_depth,
-                       raw_traj.final_cell)
-    changed = int(((layer0 != layer1) & alive).sum())
-    log(f"  lanes that changed layer: {changed}")
-    if changed == 0:
-        fail("no particle changed layer")
-    del raw_traj, lines, pts_h
-
-    # ---- phase 3: gate, kernel path vs plain path -------------------------
-    log("[phase 3] gate: 20 steps, kernel path vs plain path")
+    # ---- phase 3: gate, kernel paths vs plain path ------------------------
+    log("[phase 3] gate: 20 steps, both kernel paths vs the plain path")
     gate_cfg = mtt.TrajectorySettings(
         delta_t=120, simulation_duration=120 * 20, record_t=120 * 20,
         particle_depths=depths, fail_mode=mtt.FailMode.ZERO)
-    for mesh, sol, tag in ((mesh32, sol32, "f32"), (mesh64, sol64, "f64")):
-        fast = timed(f"{tag} kernel path, 20 steps", lambda: mtt.run_advection(
-            mesh, sol, seeds, cells, gate_cfg))
-        plain = timed(f"{tag} plain path, 20 steps", lambda: mtt.run_advection(
-            mesh, sol, seeds, cells, gate_cfg, use_kernel=False))
-        fp = fast.final_position.double().cpu().numpy()
-        ep = plain.final_position.double().cpu().numpy()
-        err = np.linalg.norm(fp - ep, axis=1)
-        d_e = float(np.median(np.linalg.norm(ep - seeds, axis=1)))
-        d_f = float(np.median(np.linalg.norm(fp - seeds, axis=1)))
-        tol = max(100.0, 1e-4 * max(d_e, 1.0))
-        frac = float((err <= tol).mean())
-        log(f"  {tag}: {100 * frac:.3f}% of lanes within {tol:.1f} m; median "
-            f"displacement kernel {d_f:.3f} m vs plain {d_e:.3f} m; per step "
-            f"kernel path {1e3 * times[f'{tag} kernel path, 20 steps'] / 20:.3f}"
-            f" ms, plain path "
-            f"{1e3 * times[f'{tag} plain path, 20 steps'] / 20:.3f} ms ({smi})")
-        if frac < 0.995 or abs(d_f - d_e) > 0.05 * max(d_e, 1.0):
-            fail(f"gate {tag}")
-        del fast, plain
+    # the pathline gate blends the two snapshots over its own 20 steps, so
+    # its alphas sweep the whole range 0..1
+    gate_pcfg = mtt.TrajectorySettings(
+        delta_t=PATH_DT, simulation_duration=PATH_DT * 20,
+        record_t=PATH_DT * 4, particle_depths=depths,
+        fail_mode=mtt.FailMode.ZERO)
+    for label, run_cfg, pathline in (("", gate_cfg, False),
+                                     (" pathline", gate_pcfg, True)):
+        for real, tag in ((f32, "f32"), (f64, "f64")):
+            mesh = meshes[real]
+            sol = sols["front" if pathline else "stream", real]
+            back = sols["back", real] if pathline else None
+            key = f"{tag}{label}"
+            plain = timed(f"{key} plain path, 20 steps",
+                          lambda: mtt.run_advection(
+                              mesh, sol, seeds, cells, run_cfg, back=back,
+                              use_kernel=False))
+            ep = plain.final_position.double().cpu().numpy()
+            d_e = float(np.median(np.linalg.norm(ep - seeds, axis=1)))
+            for windowed in (True, False):
+                kpath = "window" if windowed else "full-column"
+                fast = timed(f"{key} {kpath} kernel path, 20 steps",
+                             lambda: mtt.run_advection(
+                                 mesh, sol, seeds, cells, run_cfg, back=back,
+                                 use_window=windowed))
+                fp = fast.final_position.double().cpu().numpy()
+                err = np.linalg.norm(fp - ep, axis=1)
+                d_f = float(np.median(np.linalg.norm(fp - seeds, axis=1)))
+                tol = max(100.0, 1e-4 * max(d_e, 1.0))
+                within = err <= tol
+                frac = float(within.mean())
+                extra = ""
+                attr_ok = True
+                if pathline:
+                    fa, ea = fast.attrs.double(), plain.attrs.double()
+                    a_tol = F32_REL_TOL * float(ea.abs().max())
+                    lane = ((fa - ea).abs().amax(dim=(1, 2))
+                            <= a_tol).cpu().numpy()
+                    a_frac = float(lane[within].mean())
+                    attr_ok = a_frac >= 0.995
+                    extra = (f"; attribute records within {a_tol:.2e} on "
+                             f"{100 * a_frac:.3f}% of those lanes")
+                per = times[f"{key} {kpath} kernel path, 20 steps"] / 20
+                log(f"  {key} {kpath}: {100 * frac:.3f}% of lanes within "
+                    f"{tol:.1f} m; median displacement kernel {d_f:.3f} m vs"
+                    f" plain {d_e:.3f} m{extra}; per step kernel path "
+                    f"{1e3 * per:.3f} ms, plain path "
+                    f"{1e3 * times[f'{key} plain path, 20 steps'] / 20:.3f} "
+                    f"ms ({smi})")
+                if frac < 0.995 or abs(d_f - d_e) > 0.05 * max(d_e, 1.0) \
+                        or not attr_ok:
+                    fail(f"gate {key} {kpath}")
+                del fast
+            del plain
 
     # ---- phase 4: where the device time goes -----------------------------
-    log(f"[phase 4] torch.profiler over a {PROFILE_STEPS}-step kernel-path "
-        f"run (set-up included, after one warm-up run)")
+    log(f"[phase 4] torch.profiler over a {PROFILE_STEPS}-step run of each "
+        f"kernel path (set-up included, after one warm-up run)")
     prof_cfg = mtt.TrajectorySettings(
         delta_t=120, simulation_duration=120 * PROFILE_STEPS, record_t=360,
         particle_depths=depths, fail_mode=mtt.FailMode.ZERO)
+    prof_pcfg = mtt.TrajectorySettings(
+        delta_t=PATH_DT, simulation_duration=PATH_DT * PROFILE_STEPS,
+        record_t=PATH_DT * 3, particle_depths=depths,
+        fail_mode=mtt.FailMode.ZERO)
     profile_rows = {}
-    for mesh, sol, tag in ((mesh32, sol32, "f32"), (mesh64, sol64, "f64")):
-        def run():
-            mtt.run_advection(mesh, sol, seeds, cells, prof_cfg)
-        run()
-        busy, window, per_name = device_breakdown(run)
-        top = sorted(per_name.items(), key=lambda kv: -kv[1])
-        k1 = sum(ms for name, ms in per_name.items()
-                 if "streamline_step_kernel" in name)
-        if k1 == 0.0:
-            fail(f"profile {tag}: no streamline_step_kernel on the device")
-        log(f"  {tag}: device busy {busy:.3f} ms of a {window:.3f} ms window, "
-            f"idle share {100 * (1 - busy / window):.2f}%; K1 {k1:.3f} ms "
-            f"({100 * k1 / busy:.2f}% of busy) ({smi})")
-        for name, ms in top[:8]:
-            log(f"    {ms:9.3f} ms {100 * ms / busy:6.2f}%  {name[:90]}")
-        profile_rows[tag] = {"busy_ms": busy, "window_ms": window,
-                             "k1_ms": k1, "top": [[n[:90], ms]
-                                                  for n, ms in top[:8]]}
+    for label, pcfg_, kname, pathline, windowed in (
+            (" window", prof_cfg, "window_streamline_kernel", False, True),
+            ("", prof_cfg, "streamline_step_kernel", False, False),
+            (" pathline window", prof_pcfg, "window_pathline_kernel", True,
+             True),
+            (" pathline", prof_pcfg, "pathline_step_kernel", True, False)):
+        for real, tag in ((f32, "f32"), (f64, "f64")):
+            mesh = meshes[real]
+            sol = sols["front" if pathline else "stream", real]
+            back = sols["back", real] if pathline else None
+
+            def run():
+                mtt.run_advection(mesh, sol, seeds, cells, pcfg_, back=back,
+                                  use_window=windowed)
+            run()
+            busy, window, per_name, gap = device_breakdown(run)
+            top = sorted(per_name.items(), key=lambda kv: -kv[1])
+            k_ms = sum(ms for name, ms in per_name.items() if kname in name)
+            if k_ms == 0.0:
+                fail(f"profile {tag}{label}: no {kname} on the device")
+            log(f"  {tag}{label}: device busy {busy:.3f} ms of a "
+                f"{window:.3f} ms window, idle share "
+                f"{100 * (1 - busy / window):.2f}%; {kname} {k_ms:.3f} ms "
+                f"({100 * k_ms / busy:.2f}% of busy) ({smi})")
+            log(f"    longest idle gap {gap[0]:.3f} ms at {gap[1]:.3f} ms "
+                f"into the window, before {gap[2][:60]}")
+            for name, ms in top[:8]:
+                log(f"    {ms:9.3f} ms {100 * ms / busy:6.2f}%  {name[:90]}")
+            profile_rows[f"{tag}{label}"] = {
+                "busy_ms": busy, "window_ms": window, "kernel_ms": k_ms,
+                "longest_gap_ms": gap[0],
+                "top": [[nm[:90], ms] for nm, ms in top[:8]]}
+
+    # ---- the kernels' bounds at the main paths' start inputs -------------
+    bounds = {}
+    for key, pathline, n_attrs, n_window in (
+            ("k1", False, 0, None), ("k2", True, 2, None),
+            ("k3", False, 0, WINDOW), ("k4", True, 2, WINDOW)):
+        for real, tag in ((f32, "f32"), (f64, "f64")):
+            names = ["front", "back"] if pathline else ["stream"]
+            b_ms, b_by, nbytes, ops = step_bound(
+                meshes[real], [sols[k, real] for k in names], seeds, cells,
+                depths, n_attrs, pathline, tag, n_window)
+            bounds[f"{key} {tag}"] = (b_ms, b_by)
+            log(f"  bound {key} {tag}: {b_ms:.4f} ms ({b_by}; "
+                f"{nbytes / 1e6:.3f} MB, {ops / 1e9:.3f} G operations per "
+                "step)")
+        rows[key].update(bound_ms=bounds[f"{key} f32"][0],
+                         bound_by=bounds[f"{key} f32"][1], library_ms=None)
 
     log(json.dumps({"phase_seconds": times, "build_seconds": build_s,
-                    "particle_rk4_steps_per_s": steps_per_s,
+                    "main_paths": summary,
+                    "bounds_ms": {k: v[0] for k, v in bounds.items()},
                     "profile": profile_rows}))
-    log(json.dumps({"kernels": [{
-        "name": "fused_streamline_step", "route": "cuda",
-        "source": "mops_tpu_torch/csrc/stage_kernel.cu",
-        "replaces": "mops_tpu/pallas/stage_kernel.py:49",
-        "launches": launches, **kernel_rows}]}))
+    replaces = {"k1": "mops_tpu/pallas/stage_kernel.py:49",
+                "k2": "mops_tpu/pallas/stage_kernel.py:502",
+                "k3": "mops_tpu/pallas/window_kernel.py:509",
+                "k4": "mops_tpu/pallas/window_kernel.py:544"}
+    log(json.dumps({"kernels": [
+        {"name": kernels[key].__name__, "route": "cuda",
+         "source": "mops_tpu_torch/csrc/stage_kernel.cu",
+         "replaces": replaces[key], **rows[key]} for key in kernels]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,28 +1,40 @@
 """mops_tpu_torch: MPAS-Ocean particle advection on PyTorch and CUDA.
 
 The PyTorch port of mops_tpu (which stays the JAX reference).  It imports
-torch, numpy and scipy only.  This first slice covers the single-device
-streamline path: synthetic meshes and fields, preprocessing on the device,
-seed cell search, RK4/Euler streamline advection through the fused step
-kernel (csrc/stage_kernel.cu, built with nvcc at first use on a CUDA card;
-its plain torch version on the CPU), and trajectory finalization.
+torch, numpy and scipy only.  It covers the single-device streamline and
+pathline paths: synthetic meshes and fields, preprocessing on the device,
+seed cell search, RK4/Euler advection through the fused step kernels
+(csrc/stage_kernel.cu, built with nvcc at first use on a CUDA card: K1 for
+a streamline, K2 for a pathline between two snapshots with up to two named
+attributes, and their layer-window forms K3 and K4, which a run on the card
+takes by default), and trajectory finalization.
 
-Quick start (synthetic mesh, no data files needed):
+The entry points (``preprocess``, ``run_advection``) run on the card; the
+CPU runs only when the caller passes ``device="cpu"`` (then each kernel's
+plain torch version stands in), and without a card a CUDA run raises.
 
-    import numpy as np, torch, mops_tpu_torch as mtt
-    dev = "cuda" if torch.cuda.is_available() else "cpu"
-    mesh = mtt.synth.build_voronoi_mesh(2000, jitter=0.05).to(dev)
+Quick start on the card (synthetic mesh, no data files needed):
+
+    import mops_tpu_torch as mtt
+    mesh = mtt.synth.build_voronoi_mesh(2000, jitter=0.05, n_layers=8)
     raw = mtt.synth.solid_body_fields(mesh, n_layers=8)
-    sol = mtt.preprocess(mesh, raw)
+    front = mtt.preprocess(mesh, raw)
+    back = mtt.preprocess(mesh, mtt.synth.solid_body_fields(
+        mesh, n_layers=8, omega=1.2e-5))
     seeds = mtt.seeding.generate_sample_points(
         mtt.SamplingSettings(sample_range=(10, 10), lat_range=(-40, 40),
                              lon_range=(-40, 40), depth=10.0))
     cells = mtt.CellSearch(mesh).query(seeds)
-    cfg = mtt.TrajectorySettings(delta_t=120, simulation_duration=86400,
-                                 record_t=120)
-    raw_traj = mtt.run_advection(mesh, sol, seeds, cells, cfg)
-    lines = mtt.finalize_trajectories(seeds, raw_traj.points.cpu().numpy(),
-                                      raw_traj.velocities.cpu().numpy(), cfg)
+    cfg = mtt.TrajectorySettings(delta_t=600, simulation_duration=86400,
+                                 record_t=3600)
+    stream = mtt.run_advection(mesh, front, seeds, cells, cfg)
+    path = mtt.run_advection(mesh, front, seeds, cells, cfg, back=back)
+    lines = mtt.finalize_trajectories(
+        seeds, path.points.cpu().numpy(), path.velocities.cpu().numpy(), cfg,
+        attrs=path.attrs.cpu().numpy(), with_attrs=True)
+
+The same on the CPU: pass ``device="cpu"`` to ``preprocess`` and
+``run_advection``.
 """
 
 import torch

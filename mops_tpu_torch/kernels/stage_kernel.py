@@ -1,14 +1,19 @@
-"""Fused streamline step: the CUDA kernel (csrc/stage_kernel.cu), its build
-and ctypes binding, and its plain PyTorch version.
+"""Fused streamline and pathline steps: the CUDA kernels
+(csrc/stage_kernel.cu), their build and ctypes binding, and their plain
+PyTorch versions.
 
-Port of the TPU kernel mops_tpu/pallas/stage_kernel.py::_kernel as reached
-through ``fused_streamline_step``.  The wrapper launches the kernel for CUDA
-tensors and runs the plain version for CPU tensors; a CUDA tensor never
-falls back to the plain version.
+Ports of the TPU kernels mops_tpu/pallas/stage_kernel.py::_kernel as reached
+through ``fused_streamline_step`` (K1) and ``fused_pathline_step`` (K2), and
+mops_tpu/pallas/window_kernel.py::_wkernel as reached through
+``fused_window_streamline_step`` (K3) and ``fused_window_pathline_step``
+(K4): the same steps with each stage reading only a W-layer window of the
+columns.  Each wrapper launches its kernel for CUDA tensors and runs the
+plain version for CPU tensors; a CUDA tensor never falls back to the plain
+version.
 
-The kernel is compiled with nvcc for sm_90a into ``mops_tpu_torch/_build/``
-at first use (a shared library with a plain C entry point per dtype, loaded
-with ctypes).  Importing this module builds nothing.
+All four kernels are compiled with nvcc for sm_90a into ``mops_tpu_torch/_build/``
+at first use (one shared library with a plain C entry point per kernel and
+dtype, loaded with ctypes).  Importing this module builds nothing.
 """
 
 from __future__ import annotations
@@ -23,31 +28,47 @@ from pathlib import Path
 
 import torch
 
-from ..step import streamline_step
+from ..step import (pathline_step, start_layer, streamline_step, window_cols,
+                    window_pathline_step, window_streamline_step)
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "stage_kernel.cu"
 BUILD_DIR = _PKG / "_build"
 # IEEE division and square root are required (see the source): no fast-math.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
-# Compile-time ceilings of the kernel (K_MAX, L_MAX in the source).
+              "-Xcompiler", "-fPIC"]
+# The source's entries are compiled as this many translation units at once
+# (STAGE_PART in the source), then linked into one library.
+BUILD_PARTS = 8
+# Compile-time ceilings of the kernels (K_MAX, L_MAX, A_MAX, W_MAX in the
+# source).
 K_MAX = 20
 L_MAX = 128
+A_MAX = 2
+W_MAX = 32
 
 _lib = None
 BUILD_LOG = ""
 
 
 def pack_vertex_table(vertex_xyz, vertex_ztop, vertex_velocity,
-                      vertex_vert_velocity) -> torch.Tensor:
+                      vertex_vert_velocity, vertex_attrs=None) -> torch.Tensor:
     """Fuse the per-vertex tables into one contiguous (nV, F) row table with
-    layout [xyz(3) | ztop(L) | vel(L*3, layer-major) | wvel(L+1)],
-    F = 3 + 4L + (L+1): one row per vertex serves the whole fused step."""
+    layout [xyz(3) | ztop(L) | vel(L*3, layer-major) | wvel(L+1)
+    | attrs(L*A, layer-major: A*l + ai)], F = 3 + 4L + (L+1) + L*A: one row
+    per vertex serves the whole fused step.  ``vertex_attrs`` is the
+    optional (nV, L, A) stack of advect.stacked_vertex_attrs."""
     n_vert, L = vertex_ztop.shape
-    return torch.cat([vertex_xyz, vertex_ztop,
-                      vertex_velocity.reshape(n_vert, 3 * L),
-                      vertex_vert_velocity], dim=1).contiguous()
+    parts = [vertex_xyz, vertex_ztop, vertex_velocity.reshape(n_vert, 3 * L),
+             vertex_vert_velocity]
+    if vertex_attrs is not None:
+        parts.append(vertex_attrs.reshape(n_vert, -1))
+    return torch.cat(parts, dim=1).contiguous()
+
+
+def table_width(n_layers: int, n_attrs: int = 0) -> int:
+    """F of pack_vertex_table for L layers and A attributes."""
+    return 3 + 4 * n_layers + n_layers + 1 + n_layers * n_attrs
 
 
 def _nvcc() -> str:
@@ -65,24 +86,52 @@ def _nvcc() -> str:
 
 def build(verbose: bool = False) -> Path:
     """Compile the kernel library (cached by source and flags) and return its
-    path.  ``verbose`` adds ptxas's register/spill report to BUILD_LOG."""
+    path: one nvcc process per part of the source, all started together,
+    then one link.  ``verbose`` adds ptxas's register/spill report to
+    BUILD_LOG."""
     global BUILD_LOG
     key = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                       ).hexdigest()[:16]
+                       + str(BUILD_PARTS).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"libstage_kernel_{key}.so"
     if lib_path.exists():
         return lib_path
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tag = f"{key}.{os.getpid()}"
+    objs = [BUILD_DIR / f"stage_kernel_{tag}.{p}.o"
+            for p in range(1, BUILD_PARTS + 1)]
     tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
     t0 = time.perf_counter()
     flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-    proc = subprocess.run([_nvcc(), *flags, "-o", str(tmp), str(SOURCE)],
-                          capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-    os.replace(tmp, lib_path)
-    BUILD_LOG = (f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s\n"
-                 + proc.stdout + proc.stderr)
+    nvcc = _nvcc()
+    procs = []
+    try:
+        for p, obj in enumerate(objs, start=1):
+            procs.append(subprocess.Popen(
+                [nvcc, *flags, f"-DSTAGE_PART={p}", "-c", "-o", str(obj),
+                 str(SOURCE)], stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        logs = []
+        for proc in procs:
+            out, err = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{err}")
+            logs.append(out + err)
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                               str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stderr}")
+        os.replace(tmp, lib_path)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for path in (*objs, tmp):
+            path.unlink(missing_ok=True)
+    BUILD_LOG = (f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s "
+                 f"({BUILD_PARTS} parts in parallel)\n" + "".join(logs))
     return lib_path
 
 
@@ -91,46 +140,75 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
-        for name, real in (("streamline_step_f32", ctypes.c_float),
-                           ("streamline_step_f64", ctypes.c_double)):
-            fn = getattr(lib, name)
+        for tag, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
+            fn = getattr(lib, f"streamline_step_{tag}")
             fn.argtypes = [P, P, P, P, P, I, I, I, I, real, I, P, P, P, P, P]
             fn.restype = I
-        for name in ("stage_kernel_k_max", "stage_kernel_l_max"):
+            fn = getattr(lib, f"pathline_step_{tag}")
+            fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, real, real, real,
+                           real, I, P, P, P, P, P, P]
+            fn.restype = I
+            fn = getattr(lib, f"window_streamline_step_{tag}")
+            fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, real, I, P, P, P,
+                           P, P, P, P]
+            fn.restype = I
+            fn = getattr(lib, f"window_pathline_step_{tag}")
+            fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, real, real,
+                           real, real, I, P, P, P, P, P, P, P, P]
+            fn.restype = I
+        for name in ("stage_kernel_k_max", "stage_kernel_l_max",
+                     "stage_kernel_a_max", "stage_kernel_w_max"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = I
-        if (lib.stage_kernel_k_max(), lib.stage_kernel_l_max()) != (K_MAX, L_MAX):
+        if (lib.stage_kernel_k_max(), lib.stage_kernel_l_max(),
+                lib.stage_kernel_a_max(), lib.stage_kernel_w_max()) \
+                != (K_MAX, L_MAX, A_MAX, W_MAX):
             raise RuntimeError("kernel ceilings disagree with the wrapper")
         _lib = lib
     return _lib
 
 
-def _check(pos, depth_neg, nv, vids, table, n_layers):
+def _check(name, pos, depth_neg, nv, vids, tables, F):
+    """Device, dtype, shape and contiguity checks shared by both wrappers;
+    returns (N, K)."""
     n, K = vids.shape
-    F = 3 + 4 * n_layers + n_layers + 1
     real = pos.dtype
     if real not in (torch.float32, torch.float64):
-        raise TypeError(f"fused_streamline_step: unsupported dtype {real}")
+        raise TypeError(f"{name}: unsupported dtype {real}")
     if tuple(pos.shape) != (n, 3) or tuple(depth_neg.shape) != (n,) \
-            or tuple(nv.shape) != (n,) or table.ndim != 2 \
-            or table.shape[1] != F:
+            or tuple(nv.shape) != (n,) \
+            or any(t.ndim != 2 or t.shape[1] != F for t in tables):
         raise ValueError(
-            "fused_streamline_step: shapes pos (N,3), depth_neg (N,), nv (N,), "
-            f"vids (N,K), table (nV,{F}) expected; got {tuple(pos.shape)}, "
+            f"{name}: shapes pos (N,3), depth_neg (N,), nv (N,), vids (N,K), "
+            f"tables (nV,{F}) expected; got {tuple(pos.shape)}, "
             f"{tuple(depth_neg.shape)}, {tuple(nv.shape)}, {tuple(vids.shape)}, "
-            f"{tuple(table.shape)}")
-    if depth_neg.dtype != real or table.dtype != real:
-        raise TypeError("fused_streamline_step: pos, depth_neg and table must "
-                        "share one float dtype")
+            f"{[tuple(t.shape) for t in tables]}")
+    if depth_neg.dtype != real or any(t.dtype != real for t in tables):
+        raise TypeError(f"{name}: pos, depth_neg and the tables must share "
+                        "one float dtype")
     if nv.dtype != torch.int32 or vids.dtype != torch.int32:
-        raise TypeError("fused_streamline_step: nv and vids must be int32")
-    tensors = (pos, depth_neg, nv, vids, table)
+        raise TypeError(f"{name}: nv and vids must be int32")
+    tensors = (pos, depth_neg, nv, vids, *tables)
     devices = {t.device for t in tensors}
     if len(devices) != 1:
-        raise ValueError(f"fused_streamline_step: tensors on {devices}")
+        raise ValueError(f"{name}: tensors on {devices}")
     if not all(t.is_contiguous() for t in tensors):
-        raise ValueError("fused_streamline_step: inputs must be contiguous")
-    return n, K, F
+        raise ValueError(f"{name}: inputs must be contiguous")
+    return n, K
+
+
+def _kernel_device(name, pos, K, n_layers):
+    """Raise unless ``pos`` is a CUDA tensor within the kernels' ceilings."""
+    if pos.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {pos.device}")
+    if K > K_MAX or n_layers > L_MAX or n_layers < 2:
+        raise ValueError(f"{name}: K={K}, L={n_layers} outside the kernel's "
+                         f"ceilings K <= {K_MAX}, 2 <= L <= {L_MAX}")
+
+
+def _raise_on(name, err):
+    if err != 0:
+        raise RuntimeError(f"{name}: launch failed, cudaGetLastError() = {err}")
 
 
 def fused_streamline_step(pos, depth_neg, nv, vids, table, n_layers: int,
@@ -148,15 +226,13 @@ def fused_streamline_step(pos, depth_neg, nv, vids, table, n_layers: int,
     ``fused_streamline_step.launches``); CPU tensors run
     ``fused_streamline_step_plain``.
     """
-    n, K, F = _check(pos, depth_neg, nv, vids, table, n_layers)
+    name = "fused_streamline_step"
+    F = table_width(n_layers)
+    n, K = _check(name, pos, depth_neg, nv, vids, (table,), F)
     if pos.device.type == "cpu":
         return fused_streamline_step_plain(pos, depth_neg, nv, vids, table,
                                            n_layers, dt, euler)
-    if pos.device.type != "cuda":
-        raise ValueError(f"fused_streamline_step: no kernel for {pos.device}")
-    if K > K_MAX or n_layers > L_MAX or n_layers < 2:
-        raise ValueError(f"fused_streamline_step: K={K}, L={n_layers} outside "
-                         f"the kernel's ceilings K <= {K_MAX}, 2 <= L <= {L_MAX}")
+    _kernel_device(name, pos, K, n_layers)
     new_pos = torch.empty_like(pos)
     hvel = torch.empty_like(pos)
     wvel = torch.empty_like(depth_neg)
@@ -170,9 +246,7 @@ def fused_streamline_step(pos, depth_neg, nv, vids, table, n_layers: int,
                  vids.data_ptr(), table.data_ptr(), n, K, F, n_layers, float(dt),
                  int(bool(euler)), new_pos.data_ptr(), hvel.data_ptr(),
                  wvel.data_ptr(), ok.data_ptr(), stream)
-    if err != 0:
-        raise RuntimeError(f"fused_streamline_step: launch failed, "
-                           f"cudaGetLastError() = {err}")
+    _raise_on(name, err)
     fused_streamline_step.launches += 1
     return new_pos, hvel, wvel, ok
 
@@ -188,12 +262,271 @@ def fused_streamline_step_plain(pos, depth_neg, nv, vids, table,
     run step.streamline_step.  The kernel is the ``exact_clamp`` form.
     Invalid vertex ids are not the kernel's business (the caller masks
     them)."""
+    vpos, (ztop, vel, wvel, _) = _split_rows(table, vids, n_layers, 0)
+    return streamline_step(ztop, vel, wvel, pos, depth_neg, nv, vpos, dt,
+                           euler, exact_clamp)
+
+
+def fused_pathline_step(pos, depth_neg, nv, vids, table_f, table_b,
+                        n_layers: int, dt: float, alphas, euler: bool = False,
+                        n_attrs: int = 0):
+    """One fused pathline step (RK4, or Euler) for every particle, against
+    the front and back snapshots blended by the stage alphas.
+
+    Args as fused_streamline_step, with one packed table per snapshot
+    (pack_vertex_table with the first ``n_attrs`` <= 2 attributes stacked in
+    both) and ``alphas`` = (a1, a2, a4), the time weights of stage 1,
+    stages 2-3 and stage 4 (floats holding run-dtype values).
+    Returns (new_pos (N, 3), hvel (N, 3), wvel (N,), ok (N,) bool,
+    attr (N, 3) with slots >= n_attrs zero, or None when n_attrs == 0).
+
+    CUDA tensors launch the kernel (and count the launch in
+    ``fused_pathline_step.launches``); CPU tensors run
+    ``fused_pathline_step_plain``.
+    """
+    name = "fused_pathline_step"
+    if not 0 <= n_attrs <= A_MAX:
+        raise ValueError(f"{name}: n_attrs={n_attrs} outside 0..{A_MAX}")
+    F = table_width(n_layers, n_attrs)
+    n, K = _check(name, pos, depth_neg, nv, vids, (table_f, table_b), F)
+    if pos.device.type == "cpu":
+        return fused_pathline_step_plain(pos, depth_neg, nv, vids, table_f,
+                                         table_b, n_layers, dt, alphas, euler,
+                                         n_attrs)
+    _kernel_device(name, pos, K, n_layers)
+    new_pos = torch.empty_like(pos)
+    hvel = torch.empty_like(pos)
+    wvel = torch.empty_like(depth_neg)
+    ok = torch.empty(n, dtype=torch.bool, device=pos.device)
+    attr = torch.empty_like(pos) if n_attrs else None
+    lib = _library()
+    fn = lib.pathline_step_f32 if pos.dtype == torch.float32 \
+        else lib.pathline_step_f64
+    a1, a2, a4 = (float(a) for a in alphas)
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
+                 vids.data_ptr(), table_f.data_ptr(), table_b.data_ptr(), n, K,
+                 F, n_layers, n_attrs, float(dt), a1, a2, a4,
+                 int(bool(euler)), new_pos.data_ptr(), hvel.data_ptr(),
+                 wvel.data_ptr(), ok.data_ptr(),
+                 None if attr is None else attr.data_ptr(), stream)
+    _raise_on(name, err)
+    fused_pathline_step.launches += 1
+    return new_pos, hvel, wvel, ok, attr
+
+
+fused_pathline_step.launches = 0
+
+
+def _split_rows(table, vids, n_layers, n_attrs):
+    """Gather the (N, K, F) rows of a packed table and split them into
+    (vpos, (ztop, vel, wvel, attrs or None))."""
     L = n_layers
     n, K = vids.shape
     cols = table[vids.long()]                           # (N, K, F)
-    vpos = cols[..., :3]
-    ztop = cols[..., 3:3 + L]
-    vel = cols[..., 3 + L:3 + 4 * L].reshape(n, K, L, 3)
-    wvel = cols[..., 3 + 4 * L:]
-    return streamline_step(ztop, vel, wvel, pos, depth_neg, nv, vpos, dt,
-                           euler, exact_clamp)
+    o_w = 3 + 4 * L
+    o_a = o_w + L + 1
+    attrs = cols[..., o_a:].reshape(n, K, L, n_attrs) if n_attrs else None
+    return cols[..., :3], (cols[..., 3:3 + L],
+                           cols[..., 3 + L:o_w].reshape(n, K, L, 3),
+                           cols[..., o_w:o_a], attrs)
+
+
+def fused_pathline_step_plain(pos, depth_neg, nv, vids, table_f, table_b,
+                              n_layers: int, dt: float, alphas,
+                              euler: bool = False, n_attrs: int = 0,
+                              exact_clamp: bool = True):
+    """The same step as torch ops (the kernel's signature, plus the clamp
+    form): gather the (N, K, F) rows of both tables and run
+    step.pathline_step.  Vertex positions come from the front table.  The
+    alphas are cast to the run dtype."""
+    vpos, cols_f = _split_rows(table_f, vids, n_layers, n_attrs)
+    _, cols_b = _split_rows(table_b, vids, n_layers, n_attrs)
+    a = tuple(torch.as_tensor(x, dtype=pos.dtype, device=pos.device)
+              for x in alphas)
+    new_pos, hvel, wvel, ok, attr = pathline_step(
+        cols_f, cols_b, pos, depth_neg, nv, vpos, dt, a, euler, n_attrs,
+        exact_clamp)
+    return new_pos, hvel, wvel, ok, attr if n_attrs else None
+
+
+# ---------------------------------------------------------------------------
+# the layer-window steps (K3, K4)
+# ---------------------------------------------------------------------------
+
+def _check_window(name, s, n, n_layers, n_window, device):
+    """Checks of the window starts and width shared by K3 and K4."""
+    if tuple(s.shape) != (n,) or s.dtype != torch.int32 \
+            or not s.is_contiguous() or s.device != device:
+        raise ValueError(f"{name}: s must be a contiguous (N,) int32 tensor "
+                         f"on {device}")
+    if not 2 <= n_window <= min(n_layers, W_MAX):
+        raise ValueError(f"{name}: window W={n_window} outside 2 <= W <= "
+                         f"min(L={n_layers}, {W_MAX})")
+
+
+def _window_outputs(pos, depth_neg, n_attrs=0):
+    n = pos.shape[0]
+    dev = pos.device
+    return (torch.empty_like(pos), torch.empty_like(pos),
+            torch.empty_like(depth_neg),
+            torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty(n, dtype=torch.int32, device=dev),
+            torch.empty(n, dtype=torch.bool, device=dev),
+            torch.empty_like(pos) if n_attrs else None)
+
+
+def fused_window_streamline_step(pos, depth_neg, nv, vids, s, table,
+                                 n_layers: int, n_window: int, dt: float,
+                                 euler: bool = False):
+    """One streamline step (RK4, or Euler) whose stages read only the
+    layers s..s+W-1 of each vertex column.
+
+    Args as fused_streamline_step, plus s (N,) int32 window starts in
+    [0, L - W] (step.window_starts) and the window width W = ``n_window``.
+    Returns (new_pos (N, 3), hvel (N, 3), wvel (N,), ok (N,) bool,
+    layer (N,) int32, miss (N,) bool).  A miss lane's depth lay within
+    EPS_LAYER of an inner window edge in some stage: its step is recomputed
+    on the full column (K1's arithmetic), so every lane's outputs are the
+    full step's.  layer is the layer at the start position (the next
+    window's centre).
+
+    CUDA tensors launch the kernel (counted in
+    ``fused_window_streamline_step.launches``); CPU tensors run
+    ``fused_window_streamline_step_plain``.
+    """
+    name = "fused_window_streamline_step"
+    F = table_width(n_layers)
+    n, K = _check(name, pos, depth_neg, nv, vids, (table,), F)
+    _check_window(name, s, n, n_layers, n_window, pos.device)
+    if pos.device.type == "cpu":
+        return fused_window_streamline_step_plain(
+            pos, depth_neg, nv, vids, s, table, n_layers, n_window, dt, euler)
+    _kernel_device(name, pos, K, n_layers)
+    out = _window_outputs(pos, depth_neg)
+    lib = _library()
+    fn = lib.window_streamline_step_f32 if pos.dtype == torch.float32 \
+        else lib.window_streamline_step_f64
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
+                 vids.data_ptr(), s.data_ptr(), table.data_ptr(), n, K, F,
+                 n_layers, n_window, float(dt), int(bool(euler)),
+                 *(t.data_ptr() for t in out[:6]), stream)
+    _raise_on(name, err)
+    fused_window_streamline_step.launches += 1
+    return out[:6]
+
+
+fused_window_streamline_step.launches = 0
+
+
+def _window_inputs(table, vids, s, n_layers, n_window, n_attrs):
+    """(vpos, full columns, window columns, (surface, bottom) ztop)."""
+    vpos, cols = _split_rows(table, vids, n_layers, n_attrs)
+    cols_w = tuple(window_cols(c, s, n_window) for c in cols)
+    return vpos, cols, cols_w, (cols[0][..., 0], cols[0][..., -1])
+
+
+def fused_window_streamline_step_plain(pos, depth_neg, nv, vids, s, table,
+                                       n_layers: int, n_window: int,
+                                       dt: float, euler: bool = False):
+    """The same step as torch ops: step.window_streamline_step, then the
+    miss lanes again through fused_streamline_step_plain with their start
+    layer from the full column."""
+    vpos, cols, cols_w, ends = _window_inputs(table, vids, s, n_layers,
+                                              n_window, 0)
+    new_pos, hvel, wvel, ok, layer, miss = window_streamline_step(
+        cols_w, ends, s, n_layers, pos, depth_neg, nv, vpos, dt, euler)
+    idx = torch.nonzero(miss)[:, 0]
+    if idx.numel():
+        full = fused_streamline_step_plain(pos[idx], depth_neg[idx], nv[idx],
+                                           vids[idx], table, n_layers, dt,
+                                           euler)
+        for dst, src in zip((new_pos, hvel, wvel, ok), full):
+            dst[idx] = src
+        layer[idx] = start_layer(cols[0][idx], pos[idx], depth_neg[idx],
+                                 nv[idx], vpos[idx], False)
+    return (new_pos, hvel, wvel, ok,
+            torch.clamp(layer, 1, n_layers - 1).to(torch.int32), miss)
+
+
+def fused_window_pathline_step(pos, depth_neg, nv, vids, s, table_f, table_b,
+                               n_layers: int, n_window: int, dt: float,
+                               alphas, euler: bool = False, n_attrs: int = 0):
+    """One pathline step (RK4, or Euler) whose stages read only the layers
+    s..s+W-1 of both snapshots' columns (one start for both).
+
+    Args as fused_pathline_step, plus s and W as in
+    fused_window_streamline_step.  Returns (new_pos, hvel, wvel, ok,
+    layer, miss, attr (N, 3) or None); miss lanes are recomputed on the full
+    columns (K2's arithmetic), and layer is the front snapshot's at the
+    start position.
+
+    CUDA tensors launch the kernel (counted in
+    ``fused_window_pathline_step.launches``); CPU tensors run
+    ``fused_window_pathline_step_plain``.
+    """
+    name = "fused_window_pathline_step"
+    if not 0 <= n_attrs <= A_MAX:
+        raise ValueError(f"{name}: n_attrs={n_attrs} outside 0..{A_MAX}")
+    F = table_width(n_layers, n_attrs)
+    n, K = _check(name, pos, depth_neg, nv, vids, (table_f, table_b), F)
+    _check_window(name, s, n, n_layers, n_window, pos.device)
+    if pos.device.type == "cpu":
+        return fused_window_pathline_step_plain(
+            pos, depth_neg, nv, vids, s, table_f, table_b, n_layers,
+            n_window, dt, alphas, euler, n_attrs)
+    _kernel_device(name, pos, K, n_layers)
+    out = _window_outputs(pos, depth_neg, n_attrs)
+    lib = _library()
+    fn = lib.window_pathline_step_f32 if pos.dtype == torch.float32 \
+        else lib.window_pathline_step_f64
+    a1, a2, a4 = (float(a) for a in alphas)
+    with torch.cuda.device(pos.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
+                 vids.data_ptr(), s.data_ptr(), table_f.data_ptr(),
+                 table_b.data_ptr(), n, K, F, n_layers, n_window, n_attrs,
+                 float(dt), a1, a2, a4, int(bool(euler)),
+                 *(t.data_ptr() for t in out[:6]),
+                 None if out[6] is None else out[6].data_ptr(), stream)
+    _raise_on(name, err)
+    fused_window_pathline_step.launches += 1
+    return out
+
+
+fused_window_pathline_step.launches = 0
+
+
+def fused_window_pathline_step_plain(pos, depth_neg, nv, vids, s, table_f,
+                                     table_b, n_layers: int, n_window: int,
+                                     dt: float, alphas, euler: bool = False,
+                                     n_attrs: int = 0):
+    """The same step as torch ops: step.window_pathline_step, then the miss
+    lanes again through fused_pathline_step_plain with their start layer
+    from the front snapshot's full column."""
+    vpos, cols_f, cols_fw, ends = _window_inputs(table_f, vids, s, n_layers,
+                                                 n_window, n_attrs)
+    _, _, cols_bw, _ = _window_inputs(table_b, vids, s, n_layers, n_window,
+                                      n_attrs)
+    a = tuple(torch.as_tensor(x, dtype=pos.dtype, device=pos.device)
+              for x in alphas)
+    new_pos, hvel, wvel, ok, attr, layer, miss = window_pathline_step(
+        cols_fw, cols_bw, ends, s, n_layers, pos, depth_neg, nv, vpos, dt, a,
+        euler, n_attrs)
+    idx = torch.nonzero(miss)[:, 0]
+    if idx.numel():
+        full = fused_pathline_step_plain(
+            pos[idx], depth_neg[idx], nv[idx], vids[idx], table_f, table_b,
+            n_layers, dt, alphas, euler, n_attrs)
+        for dst, src in zip((new_pos, hvel, wvel, ok), full):
+            dst[idx] = src
+        if n_attrs:
+            attr[idx] = full[4]
+        layer[idx] = start_layer(cols_f[0][idx], pos[idx], depth_neg[idx],
+                                 nv[idx], vpos[idx], True)
+    return (new_pos, hvel, wvel, ok,
+            torch.clamp(layer, 1, n_layers - 1).to(torch.int32), miss,
+            attr if n_attrs else None)

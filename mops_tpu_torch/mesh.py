@@ -26,6 +26,17 @@ def _normalize_connectivity(raw: np.ndarray, n_valid_targets: int) -> np.ndarray
 _FLOAT_FIELDS = ("cell_xyz", "vertex_xyz", "edge_xyz", "ref_bottom_depth")
 
 
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  The entry points default to
+    "cuda"; the CPU runs only when the caller asks for it (device="cpu"),
+    and a CUDA request without a card raises instead of falling back."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card is available; pass device='cpu' to "
+                           "run on the CPU")
+    return device
+
+
 @dataclasses.dataclass(frozen=True)
 class MPASMesh:
     """Static horizontal mesh; sizes derive from shapes.

@@ -4,8 +4,8 @@ mops_tpu.solution).
 Follows the reference preprocessing pipeline (src/Core/MPASOSolution.cpp
 :16-248): every per-(cell, layer) / per-(vertex, layer) kernel collapses into
 one gather + weighted sum, and the per-cell RBF Gauss elimination becomes one
-batched linear solve whose coefficients serve all vertical layers.  Runs on
-whatever device the mesh lives on.
+batched linear solve whose coefficients serve all vertical layers.
+``preprocess`` runs on the card unless the caller asks for the CPU.
 
 Layouts: scalar fields (n, L); vector fields (n, L, 3); all 0-based indices.
 """
@@ -18,7 +18,7 @@ from typing import Dict, Optional
 import torch
 
 from . import geo, interp
-from .mesh import MPASMesh
+from .mesh import MPASMesh, resolve_device
 
 # Vertex-axis chunk of cell_to_vertex: bounds the (chunk, 3, L[, 3]) gather
 # transient independently of the mesh size.
@@ -199,9 +199,11 @@ _RESERVED = {"layerThickness", "bottomDepth", "seaSurfaceHeight", "zTop",
 
 def preprocess(mesh: MPASMesh, raw: Dict[str, object],
                timestamp: str = "", timestep: int = 0,
-               dtype: Optional[torch.dtype] = None) -> SolutionFields:
+               dtype: Optional[torch.dtype] = None,
+               device="cuda") -> SolutionFields:
     """Raw NetCDF-named arrays -> advection-ready SolutionFields, computed on
-    ``mesh.device``.
+    ``device`` (the card unless the caller passes device="cpu"; without a
+    card a CUDA request raises).  The mesh is moved there.
 
     Follows MOPSApp::addSol (reference src/Core/MOPSApp.cpp:77-137): ztop
     from layerThickness(+bottomDepth/ssh), cell-center velocity from
@@ -210,6 +212,8 @@ def preprocess(mesh: MPASMesh, raw: Dict[str, object],
     becomes a named attribute (temperature, salinity, ...).  ``dtype`` casts
     the raw arrays; None keeps their own.
     """
+    mesh = mesh.to(resolve_device(device))
+
     def tensor(v):
         return torch.as_tensor(v, device=mesh.device, dtype=dtype)
 

@@ -75,7 +75,7 @@ def test_slice_matches_jax_oracle(mesh, sol, particles, method, direction,
     cfg = _settings(mtt, method, direction, fail_mode, depths)
     for use_kernel in (True, False):
         port = mtt.run_advection(pmesh, psol, seeds, cells, cfg,
-                                 use_kernel=use_kernel)
+                                 use_kernel=use_kernel, device="cpu")
         assert port.points.dtype == torch.float64
         _assert_raw_close(port, ref)
     # the run moved particles and some failed or died somewhere
@@ -97,9 +97,9 @@ def test_float32_run_tracks_float64(mesh, sol, particles):
     seeds, cells, depths = particles
     pmesh, psol = mesh_from_jax(mesh), solution_from_jax(sol)
     cfg = _settings(mtt, "RK4", "FORWARD", "ZERO", depths)
-    r64 = mtt.run_advection(pmesh, psol, seeds, cells, cfg)
+    r64 = mtt.run_advection(pmesh, psol, seeds, cells, cfg, device="cpu")
     r32 = mtt.run_advection(pmesh, psol, seeds, cells, cfg,
-                            dtype=torch.float32)
+                            dtype=torch.float32, device="cpu")
     assert r32.points.dtype == torch.float32
     err = (r32.final_position.double() - r64.final_position).norm(dim=1)
     live = r64.alive.numpy()
@@ -107,13 +107,26 @@ def test_float32_run_tracks_float64(mesh, sol, particles):
 
 
 def test_pathline_and_clamp_options_raise(mesh, sol, particles):
+    """The kernel path refuses the parallel clamp; pathline (back=...) runs,
+    and with one snapshot as both it is that snapshot's streamline up to the
+    layer search (the same positions wherever both searches agree)."""
     seeds, cells, depths = particles
     pmesh, psol = mesh_from_jax(mesh), solution_from_jax(sol)
     cfg = _settings(mtt, "RK4", "FORWARD", "ZERO", depths)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        mtt.run_advection(pmesh, psol, seeds, cells, cfg, back=psol)
     with pytest.raises(ValueError):
-        mtt.run_advection(pmesh, psol, seeds, cells, cfg, exact_clamp=False)
+        mtt.run_advection(pmesh, psol, seeds, cells, cfg, exact_clamp=False,
+                          device="cpu")
+    with pytest.raises(ValueError):
+        mtt.run_advection(pmesh, psol, seeds, cells, cfg, back=psol,
+                          exact_clamp=False, device="cpu")
+    path = mtt.run_advection(pmesh, psol, seeds, cells, cfg, back=psol,
+                             device="cpu")
+    assert path.attrs.shape == path.points.shape
+    assert bool(path.attrs.abs().sum() > 0)      # temperature and salinity
+    stream = mtt.run_advection(pmesh, psol, seeds, cells, cfg, device="cpu")
+    assert stream.attrs is None
+    err = (path.final_position - stream.final_position).norm(dim=1)
+    assert float(err[path.alive & stream.alive].median()) < 1e-6
 
 
 def test_cummin_clamp_matches_jax(mesh, sol, particles):
@@ -125,8 +138,48 @@ def test_cummin_clamp_matches_jax(mesh, sol, particles):
                            exact_clamp=False, use_pallas=False)
     port = mtt.run_advection(mesh_from_jax(mesh), solution_from_jax(sol),
                              seeds, cells, cfg, exact_clamp=False,
-                             use_kernel=False)
+                             use_kernel=False, device="cpu")
     _assert_raw_close(port, ref)
+
+
+def test_float32_containment_near_edges_matches_float64():
+    """Points 5 m inside a cell edge are inside at float32 as at float64:
+    the edge test cross(A - p, B - p) . p does not cancel the way
+    cross(A, B) . p does with 6.4e6-m coordinates (which misplaces edge
+    planes by tens of metres and strands particles there)."""
+    from mops_tpu_torch.advect import _gather_cell_vertices
+    from mops_tpu_torch.step import _in_mesh
+    pmesh = mtt.synth.build_voronoi_mesh(20000, jitter=0.05, seed=3,
+                                         n_layers=2).to("cpu", torch.float64)
+    cells = torch.arange(0, pmesh.n_cells, 10)
+    vids, nv, _ = _gather_cell_vertices(pmesh, cells)
+    vpos = pmesh.vertex_xyz[vids.long()]
+    mid = 0.5 * (vpos[:, 0] + vpos[:, 1])
+    inward = pmesh.cell_xyz[cells] - mid
+    pos = mid + 5.0 * inward / inward.norm(dim=1, keepdim=True)
+    lane_valid = torch.arange(vids.shape[1])[None, :] < nv[:, None]
+    for real in (torch.float64, torch.float32):
+        assert bool(_in_mesh(pos.to(real), vpos.to(real), nv,
+                             lane_valid).all())
+
+
+def test_cummin_clamp_pathline_matches_jax(mesh, sol, sol_back, particles):
+    """The plain pathline path with the parallel clamp form, attributes
+    included (1e-8, test_advect.py's pathline attribute tolerance)."""
+    seeds, cells, depths = particles
+    cfg = _settings(mtt, "RK4", "FORWARD", "ZERO", depths)
+    ref = mt.run_advection(mesh, sol, seeds, cells,
+                           _settings(mt, "RK4", "FORWARD", "ZERO", depths),
+                           back=sol_back, exact_clamp=False, use_pallas=False)
+    port = mtt.run_advection(mesh_from_jax(mesh), solution_from_jax(sol),
+                             seeds, cells, cfg,
+                             back=solution_from_jax(sol_back),
+                             exact_clamp=False, use_kernel=False,
+                             device="cpu")
+    _assert_raw_close(port, ref)
+    np.testing.assert_allclose(port.attrs.numpy(), np.asarray(ref.attrs),
+                               rtol=0, atol=1e-8)
+    assert bool(port.attrs.abs().sum() > 0)
 
 
 def test_port_imports_no_jax():
@@ -135,16 +188,25 @@ def test_port_imports_no_jax():
         "import sys, torch, numpy as np, mops_tpu_torch as mtt\n"
         "torch.set_num_threads(1)\n"
         "mesh = mtt.synth.build_voronoi_mesh(200, n_layers=4)\n"
-        "sol = mtt.preprocess(mesh, mtt.synth.solid_body_fields(mesh, 4))\n"
+        "raw = mtt.synth.solid_body_fields(mesh, 4)\n"
+        "sol = mtt.preprocess(mesh, raw, device='cpu')\n"
         "seeds = mtt.seeding.generate_sample_points(mtt.SamplingSettings(\n"
         "    sample_range=(4, 4), lat_range=(-30, 30), lon_range=(-30, 30)))\n"
         "cells = mtt.CellSearch(mesh).query(seeds)\n"
         "cfg = mtt.TrajectorySettings(delta_t=600, simulation_duration=3000,\n"
         "                             record_t=600)\n"
-        "raw = mtt.run_advection(mesh, sol, seeds, cells, cfg)\n"
-        "lines = mtt.finalize_trajectories(seeds, raw.points.numpy(),\n"
-        "                                  raw.velocities.numpy(), cfg)\n"
-        "assert len(lines) == len(seeds) and bool(raw.alive.any())\n"
+        "out = mtt.run_advection(mesh, sol, seeds, cells, cfg, device='cpu')\n"
+        "lines = mtt.finalize_trajectories(seeds, out.points.numpy(),\n"
+        "                                  out.velocities.numpy(), cfg)\n"
+        "assert len(lines) == len(seeds) and bool(out.alive.any())\n"
+        "for f in (lambda: mtt.preprocess(mesh, raw),\n"
+        "          lambda: mtt.run_advection(mesh, sol, seeds, cells, cfg)):\n"
+        "    try:\n"
+        "        f()\n"
+        "    except RuntimeError as e:\n"
+        "        assert 'no CUDA card' in str(e)\n"
+        "    else:\n"
+        "        raise AssertionError('ran on the CPU without device=cpu')\n"
         "assert 'jax' not in sys.modules, 'jax was imported'\n"
         "assert not any(m.startswith('mops_tpu.') or m == 'mops_tpu'\n"
         "               for m in sys.modules)\n"

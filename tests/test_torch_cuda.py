@@ -1,4 +1,6 @@
-"""The CUDA fused step kernel against its plain PyTorch version, on a card.
+"""The CUDA fused step kernels (K1 streamline, K2 pathline, and their
+layer-window forms K3 and K4) against their plain PyTorch versions, on a
+card.
 
 Imports no jax, so it runs where only torch is installed; the repo's
 conftest imports jax, so run it on the card with
@@ -6,7 +8,8 @@ conftest imports jax, so run it on the card with
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 Without a card every test skips.  Float64 tolerances are test_pallas.py's:
-positions 1e-6 m, hvel 1e-10 m/s, wvel 1e-12 m/s, ok equal.
+positions 1e-6 m, hvel 1e-10 m/s, wvel 1e-12 m/s, ok equal; attributes
+1e-8 (test_advect.py's pathline attribute tolerance).
 """
 
 import numpy as np
@@ -15,9 +18,13 @@ import torch
 
 import mops_tpu_torch as mtt
 from mops_tpu_torch import advect
-from mops_tpu_torch.kernels.stage_kernel import (fused_streamline_step,
+from mops_tpu_torch.kernels import stage_kernel as sk
+from mops_tpu_torch.kernels.stage_kernel import (fused_pathline_step,
+                                                 fused_pathline_step_plain,
+                                                 fused_streamline_step,
                                                  fused_streamline_step_plain,
                                                  pack_vertex_table)
+from mops_tpu_torch.step import start_layer, window_starts
 
 DT = 600.0
 
@@ -31,6 +38,17 @@ def card():
     dev = torch.device("cuda")
     mesh = mesh.to(dev, torch.float64)
     return mesh, mtt.preprocess(mesh, raw), dev
+
+
+@pytest.fixture(scope="module")
+def card_back(card):
+    """A second snapshot with faster velocities and warmer, saltier water."""
+    mesh, _, _ = card
+    raw = mtt.synth.solid_body_fields(mesh, n_layers=6, w_scale=1e-4,
+                                      omega=1.2e-5)
+    raw = {k: v * 1.1 if k in ("temperature", "salinity") else v
+           for k, v in raw.items()}
+    return mtt.preprocess(mesh, raw)
 
 
 def _step_inputs(mesh, sol, dev):
@@ -77,7 +95,9 @@ def test_run_kernel_path_matches_plain_path_f64(card):
     cells = mtt.CellSearch(mesh).query(seeds)
     cfg = mtt.TrajectorySettings(delta_t=600, simulation_duration=600 * 12,
                                  record_t=1200, depth=300.0)
-    a = mtt.run_advection(mesh, sol, seeds, cells, cfg)
+    before = fused_streamline_step.launches
+    a = mtt.run_advection(mesh, sol, seeds, cells, cfg, use_window=False)
+    assert fused_streamline_step.launches == before + cfg.n_steps
     b = mtt.run_advection(mesh, sol, seeds, cells, cfg, use_kernel=False)
     torch.testing.assert_close(a.points, b.points, rtol=0, atol=1e-6)
     torch.testing.assert_close(a.velocities, b.velocities, rtol=0, atol=1e-10)
@@ -92,3 +112,178 @@ def test_kernel_ceilings_raise(card):
     wide = torch.zeros((len(nv), 21), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="ceilings"):
         fused_streamline_step(pos, dn, nv, wide, table, L, DT)
+
+
+def _pathline_inputs(mesh, sol, back, dev, n_attrs):
+    pos, dn, nv, vids, _, L = _step_inputs(mesh, sol, dev)
+    dn[32:40] = 5.0                                      # above the surface
+
+    def table(s):
+        attrs = advect.stacked_vertex_attrs(s)[..., :n_attrs] if n_attrs \
+            else None
+        return pack_vertex_table(mesh.vertex_xyz, s.vertex_ztop,
+                                 s.vertex_velocity, s.vertex_vert_velocity,
+                                 attrs)
+    return pos, dn, nv, vids, table(sol), table(back), L
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_attrs", [0, 2])
+@pytest.mark.parametrize("euler", [False, True], ids=["rk4", "euler"])
+def test_pathline_kernel_matches_plain_f64(card, card_back, euler, n_attrs):
+    mesh, sol, dev = card
+    args = _pathline_inputs(mesh, sol, card_back, dev, n_attrs)
+    for alphas in ((0.3, 0.305, 0.31), (0.996, 1.0, 1.0)):
+        before = fused_pathline_step.launches
+        got = fused_pathline_step(*args, DT, alphas, euler=euler,
+                                  n_attrs=n_attrs)
+        torch.cuda.synchronize()
+        assert fused_pathline_step.launches == before + 1
+        want = fused_pathline_step_plain(*args, DT, alphas, euler=euler,
+                                         n_attrs=n_attrs)
+        for a, b, tol in zip(got[:3], want[:3], (1e-6, 1e-10, 1e-12)):
+            torch.testing.assert_close(a, b, rtol=0, atol=tol, equal_nan=True)
+        assert torch.equal(got[3], want[3])
+        assert not bool(got[3][:16].any()) and bool(got[3][64:].any())
+        if n_attrs:
+            torch.testing.assert_close(got[4], want[4], rtol=0, atol=1e-8)
+            assert bool((got[4][got[3], :2] != 0).all())
+        else:
+            assert got[4] is None and want[4] is None
+
+
+@pytest.mark.cuda
+def test_pathline_run_kernel_path_matches_plain_path_f64(card, card_back):
+    mesh, sol, dev = card
+    seeds = mtt.seeding.generate_sample_points(mtt.SamplingSettings(
+        sample_range=(9, 9), lat_range=(-60, 60), lon_range=(-170, 170)))
+    cells = mtt.CellSearch(mesh).query(seeds)
+    cfg = mtt.TrajectorySettings(delta_t=600, simulation_duration=600 * 12,
+                                 record_t=1200, depth=300.0)
+    before = fused_pathline_step.launches
+    a = mtt.run_advection(mesh, sol, seeds, cells, cfg, back=card_back,
+                          use_window=False)
+    assert fused_pathline_step.launches == before + cfg.n_steps
+    b = mtt.run_advection(mesh, sol, seeds, cells, cfg, back=card_back,
+                          use_kernel=False)
+    torch.testing.assert_close(a.points, b.points, rtol=0, atol=1e-6)
+    torch.testing.assert_close(a.velocities, b.velocities, rtol=0, atol=1e-10)
+    torch.testing.assert_close(a.attrs, b.attrs, rtol=0, atol=1e-8)
+    assert bool(a.attrs.abs().sum() > 0)
+    assert torch.equal(a.alive, b.alive)
+    assert torch.equal(a.final_cell, b.final_cell)
+
+
+@pytest.mark.cuda
+def test_pathline_kernel_ceilings_raise(card, card_back):
+    mesh, sol, dev = card
+    pos, dn, nv, vids, tf, tb, L = _pathline_inputs(mesh, sol, card_back,
+                                                    dev, 2)
+    alphas = (0.3, 0.305, 0.31)
+    wide = torch.zeros((len(nv), 21), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="ceilings"):
+        fused_pathline_step(pos, dn, nv, wide, tf, tb, L, DT, alphas,
+                            n_attrs=2)
+    with pytest.raises(ValueError, match="n_attrs"):
+        fused_pathline_step(pos, dn, nv, vids, tf, tb, L, DT, alphas,
+                            n_attrs=3)
+
+
+# --- the layer-window kernels (K3, K4) ---------------------------------------
+
+W = 4
+
+
+def _window_starts(pos, dn, nv, vids, table, L):
+    """Starts around each lane's layer, shifted by two layers on some lanes
+    so that their depth leaves the window (misses)."""
+    rows = table[vids.long()]
+    layer = start_layer(rows[..., 3:3 + L], pos, dn, nv, rows[..., :3], False)
+    s = window_starts(layer, L, W)
+    shift = torch.zeros_like(s)
+    shift[60:100:2], shift[61:100:2] = 2, -2
+    return torch.clamp(s + shift, 0, L - W).to(torch.int32).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("path", ["streamline", "pathline_0", "pathline_2"])
+@pytest.mark.parametrize("euler", [False, True], ids=["rk4", "euler"])
+def test_window_kernel_matches_plain_f64(card, card_back, path, euler):
+    mesh, sol, dev = card
+    if path == "streamline":
+        pos, dn, nv, vids, table, L = _step_inputs(mesh, sol, dev)
+        dn[60:120] = -torch.linspace(10.0, 3900.0, 60, dtype=dn.dtype)
+        s = _window_starts(pos, dn, nv, vids, table, L)
+        fn, plain = sk.fused_window_streamline_step, \
+            sk.fused_window_streamline_step_plain
+        args, extra, kw = (pos, dn, nv, vids, s, table, L, W, DT), (), {}
+    else:
+        n_attrs = int(path[-1])
+        pos, dn, nv, vids, tf, tb, L = _pathline_inputs(mesh, sol, card_back,
+                                                        dev, n_attrs)
+        dn[60:120] = -torch.linspace(10.0, 3900.0, 60, dtype=dn.dtype)
+        s = _window_starts(pos, dn, nv, vids, tf, L)
+        fn, plain = sk.fused_window_pathline_step, \
+            sk.fused_window_pathline_step_plain
+        args, extra = (pos, dn, nv, vids, s, tf, tb, L, W, DT), \
+            ((0.996, 1.0, 1.0),)
+        kw = {"n_attrs": n_attrs}
+    before = fn.launches
+    got = fn(*args, *extra, euler=euler, **kw)
+    torch.cuda.synchronize()
+    assert fn.launches == before + 1
+    want = plain(*args, *extra, euler=euler, **kw)
+    for a, b, tol in zip(got[:3], want[:3], (1e-6, 1e-10, 1e-12)):
+        torch.testing.assert_close(a, b, rtol=0, atol=tol, equal_nan=True)
+    for a, b in zip(got[3:6], want[3:6]):                # ok, layer, miss
+        assert torch.equal(a, b)
+    assert 0 < int(got[5].sum()) < len(nv) // 2           # some lanes missed
+    assert not bool(got[3][:16].any()) and bool(got[3][64:].any())
+    if path == "pathline_2":
+        torch.testing.assert_close(got[6], want[6], rtol=0, atol=1e-8)
+    elif path != "streamline":
+        assert got[6] is None and want[6] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pathline", [False, True],
+                         ids=["streamline", "pathline"])
+def test_windowed_run_matches_plain_path_f64(card, card_back, pathline):
+    """A run on the card takes the window kernels by default and matches
+    the plain path."""
+    mesh, sol, dev = card
+    back = card_back if pathline else None
+    seeds = mtt.seeding.generate_sample_points(mtt.SamplingSettings(
+        sample_range=(9, 9), lat_range=(-60, 60), lon_range=(-170, 170)))
+    cells = mtt.CellSearch(mesh).query(seeds)
+    cfg = mtt.TrajectorySettings(
+        delta_t=600, simulation_duration=600 * 12, record_t=1200,
+        particle_depths=np.linspace(10.0, 3900.0, len(seeds)).astype(
+            np.float32))
+    fn = sk.fused_window_pathline_step if pathline \
+        else sk.fused_window_streamline_step
+    before = fn.launches
+    a = mtt.run_advection(mesh, sol, seeds, cells, cfg, back=back, window=W)
+    assert fn.launches == before + cfg.n_steps
+    b = mtt.run_advection(mesh, sol, seeds, cells, cfg, back=back,
+                          use_kernel=False)
+    torch.testing.assert_close(a.points, b.points, rtol=0, atol=1e-6)
+    torch.testing.assert_close(a.velocities, b.velocities, rtol=0, atol=1e-10)
+    if pathline:
+        torch.testing.assert_close(a.attrs, b.attrs, rtol=0, atol=1e-8)
+    assert torch.equal(a.alive, b.alive)
+    assert torch.equal(a.final_cell, b.final_cell)
+    assert a.window_misses is not None and b.window_misses is None
+
+
+@pytest.mark.cuda
+def test_window_kernel_ceilings_raise(card):
+    mesh, sol, dev = card
+    pos, dn, nv, vids, table, L = _step_inputs(mesh, sol, dev)
+    s = torch.zeros(len(nv), dtype=torch.int32, device=dev)
+    wide = torch.zeros((len(nv), 21), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="ceilings"):
+        sk.fused_window_streamline_step(pos, dn, nv, wide, s, table, L, W, DT)
+    with pytest.raises(ValueError, match="window"):
+        sk.fused_window_streamline_step(pos, dn, nv, vids, s, table, L, L + 1,
+                                        DT)

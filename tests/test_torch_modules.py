@@ -140,13 +140,52 @@ def test_record_schedule_copy_equals_original(kw):
     ref = mt.advect.record_schedule(mt.TrajectorySettings(**kw), False)
     for a, b in zip(port, ref):
         np.testing.assert_array_equal(a, b)
-    is_first, flags, slots, dt = mtt.advect.advection_schedule(
-        mtt.TrajectorySettings(**port_kw))
-    ref_first, ref_flags, ref_slots, _, dt_ref = mt.advect.advection_schedule(
-        mt.TrajectorySettings(**kw), False, jnp.float64)
-    for a, b in ((is_first, ref_first), (flags, ref_flags), (slots, ref_slots)):
+    is_first, flags, slots, alphas, dt = mtt.advect.advection_schedule(
+        mtt.TrajectorySettings(**port_kw), False)
+    ref_first, ref_flags, ref_slots, ref_alphas, dt_ref = \
+        mt.advect.advection_schedule(mt.TrajectorySettings(**kw), False,
+                                     jnp.float64)
+    for a, b in ((is_first, ref_first), (flags, ref_flags), (slots, ref_slots),
+                 (alphas, ref_alphas)):
         np.testing.assert_array_equal(a, np.asarray(b))
     assert dt == float(dt_ref)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(delta_t=600, simulation_duration=600 * 14, record_t=1200),
+    dict(delta_t=600, simulation_duration=30 * 86400, record_t=6 * 3600,
+         direction=mt.CalcDirection.BACKWARD),
+    dict(delta_t=700, simulation_duration=7000, record_t=1000),
+])
+def test_pathline_schedule_and_stage_alphas_match_jax(kw):
+    """The pathline schedule (alphas i / n_steps, the (i+1) % (record_t //
+    delta_t) cadence) equals mops_tpu's; the stage alphas a2 and a4 equal
+    mops_tpu.advect's clip(a1 + dalpha/2) and clip(a1 + dalpha) in the run
+    dtype (advect.py:757-759), for float32 and float64."""
+    port_kw = dict(kw)
+    if "direction" in kw:
+        port_kw["direction"] = mtt.CalcDirection.BACKWARD
+    cfg, ref_cfg = mtt.TrajectorySettings(**port_kw), mt.TrajectorySettings(**kw)
+    port = mtt.advect.advection_schedule(cfg, True)
+    for real, jreal in ((torch.float64, jnp.float64),
+                        (torch.float32, jnp.float32)):
+        ref = mt.advect.advection_schedule(ref_cfg, True, jreal)
+        for a, b in zip(port[:3], ref[:3]):
+            np.testing.assert_array_equal(a, np.asarray(b))
+        np.testing.assert_array_equal(port[3].astype(np.dtype(jreal)),
+                                      np.asarray(ref[3]))
+        dt = ref[4]
+        assert port[4] == float(dt)
+        dalpha = dt / jnp.asarray(int(ref_cfg.simulation_duration), dtype=jreal)
+        a1 = ref[3]
+        for i in (0, 1, len(a1) // 2, len(a1) - 1):
+            got = mtt.advect.stage_alphas(port[3][i], port[4],
+                                          int(cfg.simulation_duration), real)
+            want = (a1[i], jnp.clip(a1[i] + 0.5 * dalpha, 0.0, 1.0),
+                    jnp.clip(a1[i] + dalpha, 0.0, 1.0))
+            for g, w in zip(got, want):
+                assert g.dtype == np.dtype(jreal)
+                assert g == np.asarray(w)
 
 
 # --- tensor ports: 1e-12 relative vs JAX x64 -------------------------------
@@ -221,7 +260,8 @@ def test_preprocess_matches_jax(kind, branch):
         raw["normalVelocity"] = mt.synth.solid_body_normal_velocity(
             jmesh, n_layers=6)
     ref = mt.preprocess(jmesh, raw)
-    port = mtt.preprocess(getattr(mtt.synth, build)(400, n_layers=6), raw)
+    port = mtt.preprocess(getattr(mtt.synth, build)(400, n_layers=6), raw,
+                          device="cpu")
     for f in ("cell_ztop", "vertex_ztop", "cell_velocity", "vertex_velocity",
               "vertex_vert_velocity"):
         _close(getattr(port, f), getattr(ref, f))
