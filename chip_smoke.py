@@ -6,9 +6,10 @@
 Phases (any failure exits non-zero; the last line is printed only on
 success):
 
-0. set-up: card name and power limit, the timed nvcc build of the fused
-   step kernels (mops_tpu_torch/csrc/stage_kernel.cu ->
-   mops_tpu_torch/_build/).
+0. set-up: card name and power limit, the timed nvcc build of the kernels
+   (mops_tpu_torch/csrc/stage_kernel.cu and row_gather.cu ->
+   mops_tpu_torch/_build/, both started together), and ptxas's registers
+   and spills of every kernel.
 1. kernel checks at the slice's shape (K = the mesh's maxEdges, L = 60, all
    particles), each kernel against its plain PyTorch version on the same
    inputs, float32 and float64, RK4 and Euler, with out-of-cell,
@@ -16,16 +17,26 @@ success):
    K1 (streamline); K2 (pathline: two snapshots, 0 and 2 attributes, stage
    alphas mid-run and near 1, where the clip engages); K3 and K4 (their
    layer-window forms, W = 8, windows placed around each lane's layer and
-   moved off it on some lanes so that they miss).
+   moved off it on some lanes so that they miss; each call is the window
+   kernel and K1's (K2's) masked repair of the miss lanes; K3 and K4 are
+   timed in their Euler form too, to part a stage's cost from the rest).
+1c. the row-gather probe K5: its main path, ``python -m
+   mops_tpu_torch.prof_dma`` at prof_dma.py's shape, driven with the counts
+   set to 0 just before it; then the kernel against its plain version and
+   beside torch.index_select at three shapes: (a) prof_dma.py's, (b) the
+   streamline slice's packed table with the valid vertex slots of the
+   seeds' cells as ids, (c) the same on the pathline front table.
 2. the main paths, each driven with every launch count set to 0 just
    before it and read just after: synth -> preprocess (on the card) ->
    CellSearch -> run_advection -> finalize_trajectories at the slice size,
    a jittered Voronoi sphere of 236,853 cells (EC30to60E2r2's count) with
    60 layers and 400x400 global seeds at depths 10..500 m, float32:
-   2a. streamline, the default (layer-window) path, K3: the crossing-regime
-       solid-body field, dt 120 s for one day, a record every 360 s;
+   2a. streamline, the default (layer-window) path, K3 and one masked K1
+       repair launch a step: the crossing-regime solid-body field, dt
+       120 s for one day, a record every 360 s;
    2b. the same through the full-column kernel (use_window=False), K1;
-   2c. pathline, the default path, K4: the reference's pathline tutorial
+   2c. pathline, the default path, K4 and its K2 repair: the reference's
+       pathline tutorial
        (tutorial/pathLine.cpp), two snapshots at ocean speeds (solid-body
        rotation at 3e-7 and 3.6e-7 rad/s, about 1.9 and 2.3 m/s at the
        equator) with temperature and salinity, RK4, dt 600 s for one month
@@ -40,16 +51,18 @@ success):
 
 The line before the card's name lists each kernel with its launches on
 its main path, its time and its plain version's time at the slice shape,
-and its bound: the larger of the bytes the step must move (each input
-read once, each output written once, counted from this run's start
-inputs) over the card's memory rate and the operations it does over the
-card's peak rate.
+its bound: the larger of the bytes the step must move (each input read
+once, each output written once, counted from this run's start inputs) over
+the card's memory rate and the operations it does over the card's peak
+rate, the time of the one PyTorch call that computes the same function
+where there is one, and ptxas's registers and spills.
 """
 
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 # Float32 tolerances of the kernel check.  The ulp of a float32 coordinate at
 # Earth radius is 0.5 m; a step rounds the position a few times at that
@@ -83,25 +96,24 @@ F64_ATTR_TOL = 1e-8
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"f32": 67e12, "f64": 34e12}
 
-# The slice: EC30to60E2r2's cell count and level count, a 400x400 global
-# seed grid, one day at dt 120 s.
-N_CELLS = 236853
-N_LAYERS = 60
-SEED_SIDE = 400
+# The slice's mesh, fields and seeds are mops_tpu_torch.prof_dma's
+# (SLICE_CELLS, ...).  The streamline runs one day at dt 120 s; the
+# pathline tutorial's run (tutorial/pathLine.cpp) dt 10 min for one month,
+# a record every 6 h.
 N_STEPS = 720
 PROFILE_STEPS = 30
-# The pathline tutorial's run (tutorial/pathLine.cpp): dt 10 min for one
-# month, a record every 6 h.  Its two snapshots turn at ocean speeds (3e-7
-# rad/s is 1.9 m/s at the equator, a strong current); the back one 1.2
-# times faster, as the second snapshot of scripts/bench_refscale.py:189-191.
 PATH_DT = 600
 PATH_STEPS = 4320
 PATH_RECORD = 6 * 3600
-PATH_OMEGA = 3e-7
-BACK_OMEGA = 3.6e-7
 # Layers per window of the window kernels (run_advection's default) and
 # lanes of the kernel check whose window is moved off their layer.
 WINDOW = 8
+# Tolerance of the row-gather probe's float64 block sums against the plain
+# version's, relative to the sum of the block's magnitudes: the two add the
+# same values (exact in float64) in other orders, so they differ by
+# rounding only, about 1.1e-16 times the square root of the values a thread
+# adds (about 6,000 at (a)) times their partial sums, far below 1e-12.
+K5_SUM_TOL = 1e-12
 # Share of alive lanes' pathline attribute records that must be non-zero.
 # A record is zero where every stage of its step failed, which at ocean
 # speeds happens to a particle that relocation leaves outside its cell's
@@ -288,10 +300,14 @@ def main():
     import numpy as np
 
     import mops_tpu_torch as mtt
-    from mops_tpu_torch import advect
+    from mops_tpu_torch import advect, prof_dma
     from mops_tpu_torch.interp import wachspress_weights
+    from mops_tpu_torch.kernels import nvcc_build
+    from mops_tpu_torch.kernels import row_gather as rg
     from mops_tpu_torch.kernels import stage_kernel as sk
     from mops_tpu_torch.kernels.stage_kernel import pack_vertex_table
+    from mops_tpu_torch.prof_dma import BACK_OMEGA, FIELD_KW, PATH_OMEGA, \
+        SLICE_LAYERS, event_ms
     from mops_tpu_torch.step import (_clamp_profile, _layer_search_binary,
                                      _layer_search_linear, window_starts)
 
@@ -301,11 +317,15 @@ def main():
     kernels = {
         "k1": sk.fused_streamline_step, "k2": sk.fused_pathline_step,
         "k3": sk.fused_window_streamline_step,
-        "k4": sk.fused_window_pathline_step}
+        "k4": sk.fused_window_pathline_step, "k5": rg.row_gather_probe}
+    windowed_fns = (sk.fused_window_streamline_step,
+                    sk.fused_window_pathline_step)
 
     def reset_counts():
         for fn in kernels.values():
             fn.launches = 0
+        for fn in windowed_fns:
+            fn.repair_launches = 0
 
     # ---- phase 0: set-up --------------------------------------------------
     kind = torch.cuda.get_device_name(0)
@@ -316,10 +336,19 @@ def main():
         f"tf32 matmul {torch.backends.cuda.matmul.allow_tf32}, "
         f"cudnn tf32 {torch.backends.cudnn.allow_tf32}")
     t0 = time.perf_counter()
-    lib_path = sk.build(verbose=True)
+    with ThreadPoolExecutor(2) as pool:
+        built = [pool.submit(mod.build) for mod in (sk, rg)]
+        lib_paths = [f.result() for f in built]
     build_s = time.perf_counter() - t0
-    log(f"[phase 0] kernel build {build_s:.2f} s -> {lib_path}")
+    log(f"[phase 0] kernel build {build_s:.2f} s -> "
+        f"{', '.join(map(str, lib_paths))}")
     log(sk.BUILD_LOG.strip())
+    log(rg.BUILD_LOG.strip())
+    ptxas = nvcc_build.ptxas_report(sk.BUILD_LOG + rg.BUILD_LOG)
+    for label, rep in sorted(ptxas.items()):
+        log(f"  ptxas {label}: {rep}")
+    if not ptxas:
+        fail("no ptxas report in the build log")
 
     times = {}
 
@@ -333,11 +362,9 @@ def main():
         return out
 
     # ---- the slice's inputs (host mesh, device fields) -------------------
-    L = N_LAYERS
-    mesh_h = timed("synth mesh", lambda: mtt.synth.build_voronoi_mesh(
-        N_CELLS, jitter=0.05, seed=0, n_layers=L))
-    field_kw = dict(n_layers=L, w_scale=1e-3, bathymetry_amp=0.5,
-                    shelf_lon=0.3, omega_decay=1.0)
+    L = SLICE_LAYERS
+    mesh_h = timed("synth mesh", prof_dma.slice_mesh)
+    field_kw = dict(n_layers=L, **FIELD_KW)
     raws = {
         "stream": timed("synth fields", lambda: mtt.synth.solid_body_fields(
             mesh_h, **field_kw)),
@@ -354,9 +381,7 @@ def main():
             sols[key, real] = timed(
                 f"preprocess {key} {tag} (card)",
                 lambda: mtt.preprocess(meshes[real], raw, dtype=real))
-    seeds = mtt.seeding.generate_sample_points(mtt.SamplingSettings(
-        sample_range=(SEED_SIDE + 1, SEED_SIDE + 1), lat_range=(-90, 90),
-        lon_range=(-180, 180)))
+    seeds = prof_dma.slice_seeds()
     n = len(seeds)
     cells = timed("cell search", lambda: mtt.CellSearch(mesh_h).query(seeds))
     depths = mtt.seeding.linear_depth_profile(n, 10, 500)
@@ -382,6 +407,15 @@ def main():
     shift = np.where(idx % 61 == 17, WINDOW, np.where(idx % 61 == 29,
                                                       -WINDOW, 0))
     rows = {k: {} for k in kernels}
+    kernel_names = {"k1": "streamline_step_kernel",
+                    "k2": "pathline_step_kernel",
+                    "k3": "window_streamline_kernel",
+                    "k4": "window_pathline_kernel", "k5": "row_gather_kernel"}
+    for key, kname in kernel_names.items():
+        rows[key]["ptxas"] = {label: rep for label, rep in ptxas.items()
+                              if label.split()[0] == kname}
+        if not rows[key]["ptxas"]:
+            fail(f"no ptxas report for {kname}")
 
     def lane_inputs(real):
         mesh = meshes[real]
@@ -411,22 +445,13 @@ def main():
         return s.contiguous(), torch.clamp(moved, 0, L - WINDOW).to(
             torch.int32).contiguous()
 
-    def event_ms(fn, reps):
-        fn()
-        sync()
-        a, b = torch.cuda.Event(True), torch.cuda.Event(True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        sync()
-        return a.elapsed_time(b) / reps
-
     def check(key, name, call, plain, dt, flags=(3,), attr=None,
               timed_case=False, real=f32, timed_calls=None):
         """Hold ``call`` against ``plain``; on the timed case, time both per
         step (or the pair ``timed_calls``: the window kernels are timed at
-        the main path's window starts)."""
+        the main path's window starts); with ``timed_case="euler"`` time the
+        kernel alone (K3/K4's one-stage form: RK4's time less Euler's is
+        three stages' work)."""
         got = call()
         sync()
         want = plain()
@@ -452,6 +477,12 @@ def main():
         if timed_case:
             k_call, p_call = timed_calls or (call, plain)
             ms = event_ms(k_call, 20)
+            if timed_case == "euler":
+                log(f"  per step at the slice shape, {key} {name}: kernel "
+                    f"{ms:.3f} ms ({smi})")
+                if real == f32:
+                    rows[key]["euler_ms"] = ms
+                return
             plain_ms = event_ms(p_call, 3)
             log(f"  per step at the slice shape, {key} {name}: kernel "
                 f"{ms:.3f} ms, plain {plain_ms:.3f} ms ({smi})")
@@ -481,10 +512,12 @@ def main():
                   lambda: sk.fused_window_streamline_step_plain(
                       pos, dn, nv, vids, s, tab, L, WINDOW, 120.0,
                       euler=euler),
-                  120.0, flags=(3, 4, 5), timed_case=not euler, real=real,
+                  120.0, flags=(3, 4, 5),
+                  timed_case="euler" if euler else True, real=real,
                   timed_calls=(
                       lambda: sk.fused_window_streamline_step(
-                          pos, dn, nv, vids, s0, tab, L, WINDOW, 120.0),
+                          pos, dn, nv, vids, s0, tab, L, WINDOW, 120.0,
+                          euler=euler),
                       lambda: sk.fused_window_streamline_step_plain(
                           pos, dn, nv, vids, s0, tab, L, WINDOW, 120.0)))
         del tab
@@ -500,6 +533,8 @@ def main():
                             f"A={n_attrs} alphas {a_name} "
                             f"{[float(a) for a in alphas]}")
                     timed_case = not euler and n_attrs and a_name == "mid"
+                    window_timed = n_attrs and a_name == "mid" and (
+                        "euler" if euler else True)
                     check("k2", name,
                           lambda: sk.fused_pathline_step(
                               pos, dn, nv, vids, tf, tb, L, PATH_DT, alphas,
@@ -518,16 +553,85 @@ def main():
                               PATH_DT, alphas, euler=euler, n_attrs=n_attrs),
                           PATH_DT, flags=(3, 4, 5),
                           attr=6 if n_attrs else None,
-                          timed_case=timed_case, real=real,
+                          timed_case=window_timed, real=real,
                           timed_calls=(
                               lambda: sk.fused_window_pathline_step(
                                   pos, dn, nv, vids, sp0, tf, tb, L, WINDOW,
-                                  PATH_DT, alphas, n_attrs=n_attrs),
+                                  PATH_DT, alphas, euler=euler,
+                                  n_attrs=n_attrs),
                               lambda: sk.fused_window_pathline_step_plain(
                                   pos, dn, nv, vids, sp0, tf, tb, L, WINDOW,
                                   PATH_DT, alphas, n_attrs=n_attrs)))
             del tf, tb
         del pos, dn, nv, vids
+
+    # ---- phase 1c: the row-gather probe (K5) ----------------------------
+    log("[phase 1c] row-gather probe K5: its main path (python -m "
+        "mops_tpu_torch.prof_dma) at (a) prof_dma.py's shape, then kernel "
+        "vs plain vs index_select at (a), (b) the streamline table and (c) "
+        "the pathline front table")
+    reset_counts()
+    probe, tab_a, ids_a = timed("prof_dma main path",
+                                lambda: prof_dma.main([]))
+    rows["k5"]["launches"] = rg.row_gather_probe.launches
+    if rows["k5"]["launches"] == 0 or sum(
+            fn.launches for fn in kernels.values()) \
+            != rows["k5"]["launches"]:
+        fail(f"launch counts of the probe's main path: "
+             f"{ {k: fn.launches for k, fn in kernels.items()} }")
+    vids_m, nv_m, _ = advect._gather_cell_vertices(
+        meshes[f32], torch.as_tensor(cells, device=dev).clamp(min=0))
+    k5_rows = {}
+
+    def k5_case(label, tab, ids, dropped=0, res=None, timed_case=True):
+        """Hold K5 against its plain version; on the timed case, time the
+        kernel (unless ``res`` holds the main path's measurement of these
+        inputs), the plain version and index_select."""
+        head, sums = rg.row_gather_probe(tab, ids)
+        sync()
+        want_head, want_sums = rg.row_gather_plain(tab, ids)
+        scale = rg.row_gather_plain(tab.abs(), ids)[1]
+        sync()
+        err = float((sums - want_sums).abs().max())
+        rel = float(((sums - want_sums).abs() / scale).max())
+        mb = tab.numel() * tab.element_size() / 1e6
+        log(f"  K5 {label}: {ids.numel()} ids ({dropped} dropped to a "
+            f"multiple of {rg.BLOCK_ROWS}), rows of {tab.shape[1]} x "
+            f"{tab.element_size()} B from a {mb:.1f} MB table; head bit-equal "
+            f"{torch.equal(head, want_head)}; block sums max |d| {err:.3e}, "
+            f"max |d| / sum|x| {rel:.3e} (tol {K5_SUM_TOL:.0e})")
+        if not torch.equal(head, want_head) or not rel <= K5_SUM_TOL:
+            fail(f"kernel check k5 {label}")
+        if not timed_case:
+            return
+        res = res or prof_dma.measure(tab, ids)
+        plain_ms = event_ms(lambda: rg.row_gather_plain(tab, ids), 3)
+        lib_ms = event_ms(lambda: torch.index_select(tab, 0, ids), 20)
+        log(f"  K5 {label}: kernel {res['ms']:.4f} ms "
+            f"({res['gb_per_s']:.1f} GB/s of {res['gathered_bytes'] / 1e6:.1f}"
+            f" MB gathered), plain {plain_ms:.3f} ms, index_select "
+            f"{lib_ms:.4f} ms; bound {res['bound_ms']:.4f} ms "
+            f"({res['unique_rows']} unique rows, "
+            f"{res['bound_bytes'] / 1e6:.1f} MB), gathered bytes over the "
+            f"memory rate {res['gathered_bound_ms']:.4f} ms ({smi})")
+        k5_rows[label] = {**res, "plain_ms": plain_ms, "library_ms": lib_ms,
+                          "max_abs_err": err, "dropped_ids": dropped}
+
+    k5_case("(a) prof_dma", tab_a, ids_a, res=probe)
+    k5_case("(a) prof_dma f64", tab_a.double(), ids_a, timed_case=False)
+    del tab_a
+    for label, tab in (
+            ("(b) streamline", table(sols["stream", f32], f32)),
+            ("(c) pathline front", table(sols["front", f32], f32, 2))):
+        ids_s, dropped = prof_dma.vertex_slot_ids(vids_m, nv_m)
+        k5_case(label, tab, ids_s, dropped)
+        del tab
+    a_row = k5_rows["(a) prof_dma"]
+    rows["k5"].update(
+        max_abs_err=a_row["max_abs_err"], ms=a_row["ms"],
+        plain_ms=a_row["plain_ms"], bound_ms=a_row["bound_ms"],
+        bound_by="bytes", library_ms=a_row["library_ms"], shapes=k5_rows)
+    del ids_a, vids_m, nv_m
 
     # ---- phase 2: the main paths -----------------------------------------
     mesh32 = meshes[f32]
@@ -566,19 +670,24 @@ def main():
             mesh32, front, seeds, cells, run_cfg, back=back,
             use_window=windowed))
         counts = {k: fn.launches for k, fn in kernels.items()}
+        repairs = kernels[key].repair_launches if windowed else 0
         rate = n * run_cfg.n_steps / times[f"run_advection {label}"]
         misses = 0 if raw_traj.window_misses is None \
             else int(raw_traj.window_misses.sum())
-        log(f"  launches {counts} for {run_cfg.n_steps} steps; {rate:.6e} "
+        log(f"  launches {counts}, repair launches {repairs} for "
+            f"{run_cfg.n_steps} steps; {rate:.6e} "
             f"particle-RK4-steps/s end to end; window misses {misses} "
             f"({100 * misses / (n * run_cfg.n_steps):.4f}% of particle-steps)"
             f" ({smi})")
         if counts[key] != run_cfg.n_steps or sum(counts.values()) \
-                != counts[key]:
-            fail(f"launch counts {counts}: {key} != {run_cfg.n_steps} steps")
+                != counts[key] or (windowed and repairs != run_cfg.n_steps):
+            fail(f"launch counts {counts}, repairs {repairs}: {key} != "
+                 f"{run_cfg.n_steps} steps")
         if (raw_traj.window_misses is None) == windowed:
             fail("window miss counts")
         rows[key]["launches"] = counts[key]
+        if windowed:
+            rows[key]["repair_launches"] = repairs
         summary[key] = {"particle_rk4_steps_per_s": rate,
                         "window_misses": misses}
         attrs = raw_traj.attrs.cpu().numpy() if pathline else None
@@ -763,11 +872,14 @@ def main():
     replaces = {"k1": "mops_tpu/pallas/stage_kernel.py:49",
                 "k2": "mops_tpu/pallas/stage_kernel.py:502",
                 "k3": "mops_tpu/pallas/window_kernel.py:509",
-                "k4": "mops_tpu/pallas/window_kernel.py:544"}
+                "k4": "mops_tpu/pallas/window_kernel.py:544",
+                "k5": "prof_dma.py:6"}
+    sources = {key: "mops_tpu_torch/csrc/stage_kernel.cu" for key in kernels}
+    sources["k5"] = "mops_tpu_torch/csrc/row_gather.cu"
     log(json.dumps({"kernels": [
         {"name": kernels[key].__name__, "route": "cuda",
-         "source": "mops_tpu_torch/csrc/stage_kernel.cu",
-         "replaces": replaces[key], **rows[key]} for key in kernels]}))
+         "source": sources[key], "replaces": replaces[key], **rows[key]}
+        for key in kernels]}))
     log(smi)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -12,7 +12,7 @@
 // pathline=True, reached through fused_window_pathline_step
 // (window_kernel.py:544, pallas_call at :577), and the same repair.
 //
-// One thread advances one particle through a whole time step: spherical
+// Each particle goes through a whole time step in one launch: spherical
 // containment, Wachspress weights over the cell's nv <= K vertices, the
 // Wachspress ztop profile with the sequential 1e-9 monotonic clamp, the
 // layer search, the vertical lerp of velocity and vertical velocity, and
@@ -33,11 +33,13 @@
 // TPU kernel reads them from one static row).  A depth within EPS_LAYER of an
 // inner window edge could belong to a layer outside: that stage is a miss.
 // Off the miss lanes every comparison resolves as on the full column, so the
-// step is K1's (K2's).  The TPU batch repairs its miss lanes afterwards with
-// a second, full-column step; here the thread that missed runs K1's (K2's)
-// step itself, so the outputs are final for every lane, and the window
-// kernel also returns the start position's layer (the next window's centre)
-// and the miss flag.
+// step is K1's (K2's).  The window kernel also returns the first stage's
+// layer (the next window's centre) and the miss flag.  The TPU step loop
+// repairs its miss lanes afterwards with a full-column step; here the
+// wrapper launches K1 (K2) right after the window kernel, on the same
+// stream, in a masked form: a lane whose miss flag is false returns at once,
+// and a miss lane overwrites its outputs with the full-column step and its
+// layer with the full column's at the start position.  No host sync.
 //
 // Input layout.  The TPU kernels take columns pre-gathered by XLA into a
 // (K, F, N) lanes-minor block, and K3/K4 a (W, K*C, N) window slice gathered
@@ -64,10 +66,12 @@
 // attribute, about K*(L+8+2A) values, and the four RK stages re-read the
 // same rows, which stay in L1/L2.  K3/K4 replace the K*L ztop values by K*W
 // plus the two column ends, and the L-long profile loop by a W-long one.
-// The simple design does one thing about it: each profile walks each row
-// contiguously (see z_profile).  Otherwise one thread per particle, rows
-// read with scalar loads, the profile kept in thread-local memory;
-// warp-per-particle row reads, shared-memory staging and TMA are later work.
+// K1/K2 are one thread per particle, each profile walking each row
+// contiguously (see z_profile), rows read with scalar loads, the profile in
+// thread-local memory.  K3/K4 stage every value of the step once, before
+// stage 1, in shared memory with coalesced asynchronous copies, and run the
+// stages out of shared memory and registers, a group of lanes a particle
+// (see "the layer window" below).
 //
 // Numerics: IEEE division and square root are required.  Do not build with
 // --use_fast_math or -ffast-math-style flags: the containment test relies on
@@ -198,7 +202,7 @@ __device__ void z_profile(T* z, const T* const* row, const T* w, int nv,
   for (int k = 0; k < nv; ++k) {
     const T* zr = row[k] + 3;
     const T wk = w[k];
-    for (int l = 0; l < L; ++l) z[l] = z[l] + wk * zr[l];
+    for (int l = 0; l < L; ++l) z[l] = fma(wk, zr[l], z[l]);
   }
   for (int l = 1; l < L; ++l)
     if (z[l] > z[l - 1]) z[l] = z[l - 1] - ztop_clamp<T>();
@@ -268,8 +272,8 @@ __device__ void pick_velocity(const T* const* row, const T* w, int nv, int L,
   for (int c = 0; c < 3; ++c) {
     T au = T(0), ad = T(0);
     for (int k = 0; k < nv; ++k) {
-      au = au + w[k] * row[k][ov + 3 * (layer - 1) + c];
-      ad = ad + w[k] * row[k][ov + 3 * layer + c];
+      au = fma(w[k], row[k][ov + 3 * (layer - 1) + c], au);
+      ad = fma(w[k], row[k][ov + 3 * layer + c], ad);
     }
     v_up[c] = au;
     v_dn[c] = ad;
@@ -287,8 +291,8 @@ __device__ T pick_wvel(const T* const* row, const T* w, int nv, int L,
   up_if = up_if < lp1 - 1 ? up_if : lp1 - 1;
   T wu = T(0), wd = T(0);
   for (int k = 0; k < nv; ++k) {
-    wu = wu + w[k] * row[k][ow + up_if];
-    wd = wd + w[k] * row[k][ow + dn_if];
+    wu = fma(w[k], row[k][ow + up_if], wu);
+    wd = fma(w[k], row[k][ow + dn_if], wd);
   }
   return t * wu + (T(1) - t) * wd;
 }
@@ -301,8 +305,8 @@ __device__ T pick_attr(const T* const* row, const T* w, int nv, int L,
   const int oa = 3 + 4 * L + L + 1;
   T au = T(0), ad = T(0);
   for (int k = 0; k < nv; ++k) {
-    au = au + w[k] * row[k][oa + n_attrs * (layer - 1) + ai];
-    ad = ad + w[k] * row[k][oa + n_attrs * layer + ai];
+    au = fma(w[k], row[k][oa + n_attrs * (layer - 1) + ai], au);
+    ad = fma(w[k], row[k][oa + n_attrs * layer + ai], ad);
   }
   return t * au + (T(1) - t) * ad;
 }
@@ -425,8 +429,9 @@ __device__ void load_cell(Particle<T>& s, int i, const int32_t* nv_in,
 // stage 0..3 at p and returns its ok; attributes 0..n_attrs-1 are averaged
 // like the velocity.
 template <typename T, typename Eval>
-__device__ bool rk_step(const T* p0, T dt, int euler, int n_attrs, Eval eval,
-                        T* np_, T* hv, T& wv, T* at) {
+__device__ __forceinline__ bool rk_step(const T* p0, T dt, int euler,
+                                        int n_attrs, Eval eval, T* np_,
+                                        T* hv, T& wv, T* at) {
   const T r = norm3(p0);
   if (euler) {
     const bool ok = eval(p0, 0, hv, wv, at);
@@ -460,6 +465,24 @@ __device__ bool rk_step(const T* p0, T dt, int euler, int n_attrs, Eval eval,
   return ok1 && ok2 && ok3 && ok4;
 }
 
+// The full column's layer at the start position p0 (the layer the TPU
+// step loop's repair returns): binary search for a streamline, first-hit linear
+// search (front snapshot) for a pathline.
+template <typename T>
+__device__ int start_layer(Particle<T>& s, const T* p0, bool pathline) {
+  T w[K_MAX];
+  geometry(s.vp, s.nv, p0, w);
+  z_profile(s.z, s.row, w, s.nv, s.L);
+  bool ok;
+  return pathline ? layer_linear(s.z, s.L, s.depth_neg, ok)
+                  : layer_binary(s.z, s.L, s.depth_neg);
+}
+
+// K1 and K2 also serve as the window kernels' repair (the masked form):
+// given ``only``, a lane whose flag is false returns at once, and a lane
+// whose flag is set overwrites its outputs with the full-column step and
+// writes the start position's layer, clipped to [1, L-1], to layer_out.
+
 template <typename T>
 __global__ void __launch_bounds__(128)
 streamline_step_kernel(const T* __restrict__ pos, const T* __restrict__ depth_neg,
@@ -468,9 +491,11 @@ streamline_step_kernel(const T* __restrict__ pos, const T* __restrict__ depth_ne
                        const T* __restrict__ table, int n, int K, int F, int L,
                        T dt, int euler, T* __restrict__ new_pos,
                        T* __restrict__ hvel, T* __restrict__ wvel,
-                       bool* __restrict__ ok_out) {
+                       bool* __restrict__ ok_out,
+                       const bool* __restrict__ only,
+                       int32_t* __restrict__ layer_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  if (i >= n || (only != nullptr && !only[i])) return;
 
   Particle<T> s;
   load_cell(s, i, nv_in, vids, K, F, L, depth_neg, table, (const T*)nullptr,
@@ -488,6 +513,10 @@ streamline_step_kernel(const T* __restrict__ pos, const T* __restrict__ depth_ne
   }
   wvel[i] = wv;
   ok_out[i] = ok;
+  if (only != nullptr) {
+    const int layer = start_layer(s, p0, false);
+    layer_out[i] = layer < 1 ? 1 : (layer > L - 1 ? L - 1 : layer);
+  }
 }
 
 template <typename T>
@@ -500,9 +529,10 @@ pathline_step_kernel(const T* __restrict__ pos, const T* __restrict__ depth_neg,
                      int n_attrs, T dt, T a1, T a2, T a4, int euler,
                      T* __restrict__ new_pos, T* __restrict__ hvel,
                      T* __restrict__ wvel, bool* __restrict__ ok_out,
-                     T* __restrict__ attr) {
+                     T* __restrict__ attr, const bool* __restrict__ only,
+                     int32_t* __restrict__ layer_out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  if (i >= n || (only != nullptr && !only[i])) return;
 
   Particle<T> s;
   const T* row_b[K_MAX];
@@ -526,49 +556,211 @@ pathline_step_kernel(const T* __restrict__ pos, const T* __restrict__ depth_neg,
     attr[3 * (int64_t)i + 1] = n_attrs > 1 ? at[1] : T(0);
     attr[3 * (int64_t)i + 2] = T(0);
   }
+  if (only != nullptr) {
+    const int layer = start_layer(s, p0, true);
+    layer_out[i] = layer < 1 ? 1 : (layer > L - 1 ? L - 1 : layer);
+  }
 }
 
 
 // ---------------------------------------------------------------------------
 // the layer window (K3, K4)
 // ---------------------------------------------------------------------------
+//
+// A group of G lanes of one warp (group_size) advances one particle.
+// Before stage 1 the group copies, for each of the cell's nv vertex rows,
+// every value a hit lane reads in the whole step into the particle's slot
+// of shared memory (cp.async, one element a lane, neighbouring lanes on
+// neighbouring addresses): one contiguous run per block of the row layout,
+//   front record: xyz(3) | ztop[0] | ztop[L-1] | window part
+//   back record (K4):                              window part
+//   window part:  ztop[s..s+W) | vel[3s..3(s+W)) | wvel[s..s+W)
+//                 | attrs[A*s..A*(s+W))
+// A pick outside [s, s+W) is zero (field_pick), so a hit lane reads nothing
+// else, and the four stages read only shared memory and registers.  In each
+// stage lane j evaluates the edge tests and Wachspress weights of vertices
+// j, j+G, ... (the triangle area B_k, which does not depend on the
+// position, once per step) into the particle's slot, where every lane
+// reads them (in registers they cost occupancy: measured slower).  The
+// stage's Wachspress sums (the window profiles and column
+// ends, then the picks at the layers found) are independent of each other:
+// each lane takes some of them, each summed over k = 0..nv-1 in order with
+// explicit fused multiply-adds as K1 and K2 sum them, and shuffles bring
+// every result to every lane.  The rest of the stage (clamp, layer search,
+// lerp, blend, the RK move) runs on the same values in every lane, so
+// nothing else is broadcast, and lane 0 writes the outputs.  The window's
+// profile z[W] lives in registers: the kernels are templated on WT, the
+// window width at compile time (8, the main path's), or W_MAX with the
+// width given at run time.  Miss lanes are not repaired here: the wrapper
+// launches K1 (K2) right after, masked by the miss flags.
+//
+// The sums' order and the absence of implicit contraction (-fmad=false)
+// make a hit lane's step bit-equal to K1's (K2's), as the window paths'
+// month-long agreement with the full-column paths needs: implicit
+// contraction, which the compiler decides by context, left 3 % of the
+// pathline month's lanes more than 100 m apart.
 
-// One stage's window of one snapshot: the profile at layers s..s+W-1.
+constexpr int kBlockThreads = 256;
+
+// Lanes a particle, the fastest of 4, 8, 16 and 32 on the H100 at the main
+// path's shapes (PERF.md): a stage's latency falls with the rounds of sums
+// a lane takes (K3 has 10 profile and 8 pick sums, K4 20 and 24), while
+// occupancy, bounded by each particle's shared memory and registers, falls
+// with more lanes.
+template <typename T, bool PATH>
+__host__ __device__ constexpr int group_size() {
+  return PATH ? (sizeof(T) == 8 ? 32 : 16) : 8;
+}
+// Shared memory a block aims at (four blocks an SM), and its ceiling.
+constexpr int kWindowSmemTarget = 56 * 1024;
+constexpr int kSmemMax = 232448;
+
+__device__ __forceinline__
+uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 template <typename T>
+__device__ __forceinline__
+void cp_async(T* dst, const T* src) {
+  if constexpr (sizeof(T) == 4)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n"
+                 :: "r"(smem_u32(dst)), "l"(src) : "memory");
+}
+
+__device__ __forceinline__
+void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Row offset of element e of a window part (see the layout above).
+__device__ __forceinline__
+int window_offset(int e, int L, int W, int A,
+                                  int s) {
+  if (e < W) return 3 + s + e;
+  if (e < 4 * W) return 3 + L + 3 * s + (e - W);
+  if (e < 5 * W) return 3 + 4 * L + s + (e - 4 * W);
+  return 4 + 5 * L + A * s + (e - 5 * W);
+}
+
+// One particle's staged step data in shared memory.
+template <typename T>
+struct Staged {
+  const T* f;       // front records (stride rsf): header(5) + window part
+  const T* b;       // back records (stride rsb): window part
+  T* w;             // the stage's Wachspress weights, normalised
+  int rsf, rsb, nv, A;
+  T d;              // depth, negative down
+};
+
+// The group's copy of the particle's rows into its slot (lane = 0..G-1).
+template <int G, typename T>
+__device__ void stage_rows(T* rec_f, T* rec_b, const T* table_f,
+                           const T* table_b, const int32_t* vid, int nv,
+                           int F, int L, int W, int A, int s, int lane) {
+  const int part = (5 + A) * W;
+  const int rsf = 5 + part;
+  for (int k = 0; k < nv; ++k) {
+    const int64_t row = (int64_t)vid[k] * F;
+    const T* src = table_f + row;
+    T* dst = rec_f + k * rsf;
+    for (int e = lane; e < rsf; e += G) {
+      const int o = e < 3 ? e : (e == 3 ? 3 : (e == 4 ? 3 + L - 1
+                              : window_offset(e - 5, L, W, A, s)));
+      cp_async(dst + e, src + o);
+    }
+    if (rec_b != nullptr) {
+      src = table_b + row;
+      dst = rec_b + k * part;
+      for (int e = lane; e < part; e += G)
+        cp_async(dst + e, src + window_offset(e, L, W, A, s));
+    }
+  }
+  cp_async_wait_all();
+}
+
+// Containment and the normalised Wachspress weights at p (geometry's
+// arithmetic, spread over the group): lane j evaluates vertices j, j+G, ...
+// and writes their weights to st.w, every lane sums them in order, and
+// the owners normalise them in place.  bk holds B_k of the lane's vertices.
+// Returns inside.  Every lane of the group must call it.
+template <int G, typename T>
+__device__ __forceinline__
+bool geometry_group(const Staged<T>& st, const T* bk, const T* p,
+                    unsigned gmask, int lane) {
+  const int nv = st.nv;
+  bool in = isfinite(p[0]) && isfinite(p[1]) && isfinite(p[2]);
+  __syncwarp(gmask);                      // the last stage's reads of w
+#pragma unroll
+  for (int q = 0; q < (K_MAX + G - 1) / G; ++q) {
+    const int k = lane + q * G;
+    if (k < nv) {
+      const T* a = st.f + k * st.rsf;
+      const T* b = st.f + (k + 1 == nv ? 0 : k + 1) * st.rsf;
+      const T* prv = st.f + (k == 0 ? nv - 1 : k - 1) * st.rsf;
+      const T a_p[3] = {a[0] - p[0], a[1] - p[1], a[2] - p[2]};
+      const T b_p[3] = {b[0] - p[0], b[1] - p[1], b[2] - p[2]};
+      T c[3];
+      cross3(a_p, b_p, c);
+      in = in && (dot3(c, p) >= T(0));
+      const T a_i = tri_area(prv, a, p);
+      const T a_n = tri_area(a, b, p);
+      st.w[k] = bk[q] / (a_i * a_n);
+    }
+  }
+  const bool inside = __all_sync(gmask, in);
+  __syncwarp(gmask);
+  T wsum = T(0);
+  for (int k = 0; k < nv; ++k) wsum = wsum + st.w[k];
+  const T inv = T(1) / wsum;
+  __syncwarp(gmask);
+#pragma unroll
+  for (int q = 0; q < (K_MAX + G - 1) / G; ++q) {
+    const int k = lane + q * G;
+    if (k < nv) st.w[k] = st.w[k] * inv;
+  }
+  __syncwarp(gmask);
+  return inside;
+}
+
+// One stage's window of one snapshot: the profile at layers s..s+W-1, in
+// registers.  W is WT unless WT is W_MAX (the run-time width).
+template <typename T, int WT>
 struct Window {
-  int s, W, L;
-  T z[W_MAX];
+  int s, Wrt, L;
+  T z[WT];
+  __device__ __forceinline__ int width() const {
+    return WT == W_MAX ? Wrt : WT;
+  }
+  // z[l] for a run-time l in [0, W): a select over the registers.
+  __device__ __forceinline__ T sel(int l) const {
+    T v = z[0];
+#pragma unroll
+    for (int m = 1; m < WT; ++m) v = m == l ? z[m] : v;
+    return v;
+  }
   // z at global layer lg, +BIG above the window and -BIG below it (zw_at).
-  __device__ T at(int lg) const {
-    return lg < s ? big<T>() : (lg >= s + W ? -big<T>() : z[lg - s]);
+  __device__ __forceinline__ T at(int lg) const {
+    return lg < s ? big<T>() : (lg >= s + width() ? -big<T>() : sel(lg - s));
   }
 };
 
-// Window profile + the clamp started at the window's top (z_window).
-template <typename T>
-__device__ void z_window(Window<T>& win, const T* const* row, const T* w,
-                         int nv) {
-  const int W = win.W;
-  for (int l = 0; l < W; ++l) win.z[l] = T(0);
-  for (int k = 0; k < nv; ++k) {
-    const T* zr = row[k] + 3 + win.s;
-    const T wk = w[k];
-    for (int l = 0; l < W; ++l) win.z[l] = win.z[l] + wk * zr[l];
-  }
-  for (int l = 1; l < W; ++l)
-    if (win.z[l] > win.z[l - 1]) win.z[l] = win.z[l - 1] - ztop_clamp<T>();
-}
-
 // Depth within EPS_LAYER of an inner window edge (miss_of).
-template <typename T>
-__device__ bool window_miss(const Window<T>& win, T d) {
+template <typename T, int WT>
+__device__ __forceinline__
+bool window_miss(const Window<T, WT>& win, T d) {
+  const int W = win.width();
   return (win.s > 0 && d >= win.z[0] - eps_layer<T>()) ||
-         (win.s + win.W < win.L && d <= win.z[win.W - 1] + eps_layer<T>());
+         (win.s + W < win.L && d <= win.sel(W - 1) + eps_layer<T>());
 }
 
 // layer_binary over the window with the sentinels; surface z0, bottom zL.
-template <typename T>
-__device__ int layer_binary_w(const Window<T>& win, T d, T z0, T zL) {
+template <typename T, int WT>
+__device__ __forceinline__
+int layer_binary_w(const Window<T, WT>& win, T d, T z0, T zL) {
   const int L = win.L;
   bool above = d > z0 + eps_layer<T>();
   bool below = d < zL - eps_layer<T>();
@@ -588,27 +780,33 @@ __device__ int layer_binary_w(const Window<T>& win, T d, T z0, T zL) {
   return above ? 1 : (below ? L - 1 : ans);
 }
 
-// layer_linear over the window's intervals (layers s+1 .. s+W-1).
-template <typename T>
-__device__ int layer_linear_w(const Window<T>& win, T d, T z0, T zL,
-                              bool& ok) {
+// layer_linear over the window's intervals (layers s+1 .. s+W-1): the first
+// hit, as the loop that stops there.
+template <typename T, int WT>
+__device__ __forceinline__
+int layer_linear_w(const Window<T, WT>& win, T d, T z0, T zL,
+                   bool& ok) {
+  const int W = win.width();
   const bool above = d > z0 + eps_layer<T>();
   const bool below = d < zL - eps_layer<T>();
   int first = 1;
   bool found = false;
-  for (int l = 1; l < win.W; ++l) {
-    if (d <= win.z[l - 1] + eps_layer<T>() && d >= win.z[l] - eps_layer<T>()) {
+#pragma unroll
+  for (int l = 1; l < WT; ++l) {
+    if (l < W && !found && d <= win.z[l - 1] + eps_layer<T>() &&
+        d >= win.z[l] - eps_layer<T>()) {
       first = win.s + l;
       found = true;
-      break;
     }
   }
   ok = above || below || found;
   return above ? 1 : (below ? win.L - 1 : first);
 }
 
-template <typename T>
-__device__ T lerp_t_w(const Window<T>& win, int layer, T d, bool& ok_denom) {
+template <typename T, int WT>
+__device__ __forceinline__
+T lerp_t_w(const Window<T, WT>& win, int layer, T d,
+           bool& ok_denom) {
   const T z_dn = win.at(layer), z_up = win.at(layer - 1);
   T x = d < z_dn ? z_dn : d;
   x = x > z_up ? z_up : x;
@@ -617,240 +815,261 @@ __device__ T lerp_t_w(const Window<T>& win, int layer, T d, bool& ok_denom) {
   return (x - z_dn) / (ok_denom ? denom : T(1));
 }
 
-// Wachspress sum of the value at row offset off + stride*lg (+ c) at global
-// layer lg, zero when lg lies outside the window (field_pick).
+// Wachspress sum of a staged value, sum_k w_k * rec[k*rs + off] in the
+// order k = 0..nv-1 with explicit fused multiply-adds (K1's and K2's column
+// sums are the same), zero for off < 0 (a layer outside the window,
+// field_pick, or an attribute slot >= A).
 template <typename T>
-__device__ T pick_w(const Window<T>& win, const T* const* row, const T* w,
-                    int nv, int off, int stride, int lg) {
-  if (lg < win.s || lg >= win.s + win.W) return T(0);
+__device__ __forceinline__
+T wachspress_sum(const T* w, const T* rec, int rs, int nv, int off) {
   T acc = T(0);
-  const int o = off + stride * lg;
-  for (int k = 0; k < nv; ++k) acc = acc + w[k] * row[k][o];
+  if (off >= 0)
+    for (int k = 0; k < nv; ++k) acc = fma(w[k], rec[k * rs + off], acc);
   return acc;
 }
 
-// Surface and bottom ztop (unclamped column ends) at the stage's weights.
-template <typename T>
-__device__ void column_ends(const T* const* row, const T* w, int nv, int L,
-                            T& z0, T& zL) {
-  z0 = T(0);
-  zL = T(0);
-  for (int k = 0; k < nv; ++k) {
-    z0 = z0 + w[k] * row[k][3];
-    zL = zL + w[k] * row[k][3 + L - 1];
-  }
+// Clamp started at the window's top (z_window's clamp).
+template <typename T, int WT>
+__device__ __forceinline__ void clamp_window(Window<T, WT>& win) {
+  const int W = win.width();
+#pragma unroll
+  for (int l = 1; l < WT; ++l)
+    if (l < W && win.z[l] > win.z[l - 1])
+      win.z[l] = win.z[l - 1] - ztop_clamp<T>();
 }
 
-// The window form of eval_streamline; layer and miss are the stage's.
-template <typename T>
-__device__ bool eval_streamline_w(Particle<T>& s, Window<T>& win,
-                                  const T* p, T* hv, T& wv, int& layer,
-                                  bool& miss) {
-  const int nv = s.nv, L = s.L;
-  const T d = s.depth_neg;
-  const T* const* row = s.row;
-  T w[K_MAX];
-  const bool inside = geometry(s.vp, nv, p, w);
-  T z0, zL;
-  column_ends(row, w, nv, L, z0, zL);
-  z_window(win, row, w, nv);
-  layer = layer_binary_w(win, d, z0, zL);
-  miss = window_miss(win, d);
-  bool ok_denom;
-  const T t = lerp_t_w(win, layer, d, ok_denom);
-  T v_up[3], v_dn[3];
-  for (int c = 0; c < 3; ++c) {
-    v_up[c] = pick_w(win, row, w, nv, 3 + L + c, 3, layer - 1);
-    v_dn[c] = pick_w(win, row, w, nv, 3 + L + c, 3, layer);
-  }
-  const bool ok_mag = norm3(v_dn) >= eps_zero<T>() && norm3(v_up) >= eps_zero<T>();
-  for (int c = 0; c < 3; ++c) hv[c] = t * v_up[c] + (T(1) - t) * v_dn[c];
-  const bool ok_final = norm3(hv) >= eps_zero<T>();
-  const int ow = 3 + 4 * L;
-  wv = t * pick_w(win, row, w, nv, ow, 1, layer - 1) +
-       (T(1) - t) * pick_w(win, row, w, nv, ow, 1, layer);
-  const bool ok = inside && ok_denom && ok_mag && ok_final;
-  if (!ok) {
-    hv[0] = hv[1] = hv[2] = T(0);
-    wv = T(0);
-  }
-  return ok;
+// Values of one snapshot's picks, in job order: velocity at layer-1 (3) and
+// layer (3), vertical velocity at layer-1 and layer, then each attribute
+// slot at layer-1 (A_MAX) and at layer (A_MAX).
+constexpr int kPicks = 8 + 2 * A_MAX;
+
+// Part offset of pick m of a snapshot whose stage layer is ``layer``, or -1
+// when its layer lies outside the window or its attribute slot >= A.
+__device__ __forceinline__ int pick_offset(int m, int layer, int s, int W,
+                                           int A) {
+  const bool up = m < 3 || m == 6 || (m >= 8 && m < 8 + A_MAX);
+  const int lw = (up ? layer - 1 : layer) - s;
+  if (lw < 0 || lw >= W) return -1;
+  if (m < 6) return W + 3 * lw + (m % 3);
+  if (m < 8) return 4 * W + lw;
+  const int ai = (m - 8) % A_MAX;
+  return ai < A ? 5 * W + A * lw + ai : -1;
 }
 
-// One snapshot's window column of a pathline stage (pathline_column).
-template <typename T>
-__device__ bool pathline_column_w(Window<T>& win, const T* const* row,
-                                  const T* w, int nv, int L, T d, T z0, T zL,
-                                  int n_attrs, T* hv, T& wv, T* at,
-                                  int& layer, bool& miss) {
-  z_window(win, row, w, nv);
-  bool ok_layer, ok_denom;
-  layer = layer_linear_w(win, d, z0, zL, ok_layer);
-  miss = window_miss(win, d);
-  const T t = lerp_t_w(win, layer, d, ok_denom);
+// One stage of the window step at p, by the particle's group (K3 when
+// !PATH, K4 when PATH; eval_streamline and eval_pathline on the window).
+// The independent Wachspress sums of the stage are spread over the group's
+// lanes, each sum taken over k in order, and gathered into every lane's
+// registers with shuffles: first the window profiles (front, then back)
+// and the front's surface and bottom, then, once every lane has found the
+// layers, the picks.  layer is the front snapshot's; miss the OR of both.
+template <typename T, int WT, bool PATH>
+__device__ __forceinline__
+bool eval_window_stage(const Staged<T>& st, int s, int W, int L,
+                       const T* bk, const T* p, T a, unsigned gmask,
+                       int lane, T* hv, T& wv, T* at, int& layer,
+                       bool& miss) {
+  constexpr int NS = PATH ? 2 : 1;              // snapshots
+  constexpr int G = group_size<T, PATH>();
+  const bool inside = geometry_group<G>(st, bk, p, gmask, lane);
+  const int nv = st.nv;
+  const T d = st.d;
+
+  // profiles and column ends: job j < WT front layer j, then the back
+  // snapshot's (pathline), then the surface and the bottom
+  constexpr int NA = NS * WT + 2;
+  constexpr int RA = (NA + G - 1) / G;
+  T acc_a[RA];
+#pragma unroll
+  for (int r = 0; r < RA; ++r) {
+    const int j = lane + r * G;
+    int off = -1;
+    const T* rec = st.f;
+    int rs = st.rsf;
+    if (j < WT) {
+      off = j < W ? 5 + j : -1;
+    } else if (PATH && j < 2 * WT) {
+      rec = st.b;
+      rs = st.rsb;
+      off = j - WT < W ? j - WT : -1;
+    } else if (j == NS * WT) {
+      off = 3;
+    } else if (j == NS * WT + 1) {
+      off = 4;
+    }
+    acc_a[r] = wachspress_sum(st.w, rec, rs, nv, off);
+  }
+  Window<T, WT> win[NS];
+  T z0 = T(0), zL = T(0);
+#pragma unroll
+  for (int j = 0; j < NA; ++j) {
+    const T v = __shfl_sync(gmask, acc_a[j / G], j % G, G);
+    if (j < NS * WT) win[j / WT].z[j % WT] = v;
+    else if (j == NS * WT) z0 = v;
+    else zL = v;
+  }
+  int lay[NS];
+  bool ok_col = true, ok_mag = true;
+  T t[NS];
+  miss = false;
+#pragma unroll
+  for (int sn = 0; sn < NS; ++sn) {
+    win[sn].s = s;
+    win[sn].Wrt = W;
+    win[sn].L = L;
+    clamp_window(win[sn]);
+    bool ok_layer = true, ok_denom;
+    lay[sn] = PATH ? layer_linear_w(win[sn], d, z0, zL, ok_layer)
+                   : layer_binary_w(win[sn], d, z0, zL);
+    miss = miss || window_miss(win[sn], d);
+    t[sn] = lerp_t_w(win[sn], lay[sn], d, ok_denom);
+    ok_col = ok_col && ok_layer && ok_denom;
+  }
+  layer = lay[0];
+
+  // the picks: job j is pick j % NP of snapshot j / NP
+  constexpr int NP = PATH ? kPicks : 8;         // no attributes in K3
+  constexpr int NB = NS * NP;
+  constexpr int RB = (NB + G - 1) / G;
+  T acc_b[RB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    const int j = lane + r * G;
+    const int sn = j / NP;
+    int off = -1;
+    if (j < NB)
+      off = pick_offset(j % NP, sn == 0 ? lay[0] : lay[NS - 1], s, W, st.A);
+    const bool front = sn == 0;
+    acc_b[r] = wachspress_sum(st.w, front ? st.f + 5 : st.b,
+                              front ? st.rsf : st.rsb, nv, off);
+  }
+  T hv_s[NS][3], wv_s[NS], at_s[NS][A_MAX];
+#pragma unroll
+  for (int sn = 0; sn < NS; ++sn) {
+    T v[kPicks];
+#pragma unroll
+    for (int m = 0; m < kPicks; ++m) {
+      const int j = sn * NP + m;
+      v[m] = m < NP ? __shfl_sync(gmask, acc_b[j / G], j % G, G) : T(0);
+    }
+    const T ts = t[sn];
+    if (!PATH)
+      ok_mag = norm3(v + 3) >= eps_zero<T>() && norm3(v) >= eps_zero<T>();
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      hv_s[sn][c] = ts * v[c] + (T(1) - ts) * v[3 + c];
+    wv_s[sn] = ts * v[6] + (T(1) - ts) * v[7];
+#pragma unroll
+    for (int ai = 0; ai < A_MAX; ++ai)
+      at_s[sn][ai] = ts * v[8 + ai] + (T(1) - ts) * v[8 + A_MAX + ai];
+  }
+  if (!PATH) {                          // eval_streamline's guards
+    for (int c = 0; c < 3; ++c) hv[c] = hv_s[0][c];
+    wv = wv_s[0];
+    const bool ok = inside && ok_col && ok_mag && norm3(hv) >= eps_zero<T>();
+    if (!ok) {
+      hv[0] = hv[1] = hv[2] = T(0);
+      wv = T(0);
+    }
+    return ok;
+  }
+  const bool ok = inside && ok_col;     // eval_pathline's blend
   for (int c = 0; c < 3; ++c)
-    hv[c] = t * pick_w(win, row, w, nv, 3 + L + c, 3, layer - 1) +
-            (T(1) - t) * pick_w(win, row, w, nv, 3 + L + c, 3, layer);
-  const int ow = 3 + 4 * L, oa = 3 + 4 * L + L + 1;
-  wv = t * pick_w(win, row, w, nv, ow, 1, layer - 1) +
-       (T(1) - t) * pick_w(win, row, w, nv, ow, 1, layer);
-  for (int ai = 0; ai < n_attrs; ++ai)
-    at[ai] = t * pick_w(win, row, w, nv, oa + ai, n_attrs, layer - 1) +
-             (T(1) - t) * pick_w(win, row, w, nv, oa + ai, n_attrs, layer);
-  return ok_layer && ok_denom;
-}
-
-// The window form of eval_pathline; layer is the front snapshot's.
-template <typename T>
-__device__ bool eval_pathline_w(Particle<T>& s, Window<T>& win,
-                                const T* const* row_b, int n_attrs,
-                                const T* p, T a, T* hv, T& wv, T* at,
-                                int& layer, bool& miss) {
-  const int nv = s.nv, L = s.L;
-  const T d = s.depth_neg;
-  T w[K_MAX];
-  const bool inside = geometry(s.vp, nv, p, w);
-  T z0, zL;
-  column_ends(s.row, w, nv, L, z0, zL);
-  T hv_f[3], hv_b[3], wv_f, wv_b, at_f[A_MAX], at_b[A_MAX];
-  int layer_b;
-  bool miss_f, miss_b;
-  const bool ok_f = pathline_column_w(win, s.row, w, nv, L, d, z0, zL,
-                                      n_attrs, hv_f, wv_f, at_f, layer,
-                                      miss_f);
-  const bool ok_b = pathline_column_w(win, row_b, w, nv, L, d, z0, zL,
-                                      n_attrs, hv_b, wv_b, at_b, layer_b,
-                                      miss_b);
-  miss = miss_f || miss_b;
-  const bool ok = inside && ok_f && ok_b;
-  for (int c = 0; c < 3; ++c)
-    hv[c] = ok ? a * hv_b[c] + (T(1) - a) * hv_f[c] : T(0);
-  wv = ok ? a * wv_b + (T(1) - a) * wv_f : T(0);
-  for (int ai = 0; ai < n_attrs; ++ai)
-    at[ai] = ok ? a * at_b[ai] + (T(1) - a) * at_f[ai] : T(0);
+    hv[c] = ok ? a * hv_s[NS - 1][c] + (T(1) - a) * hv_s[0][c] : T(0);
+  wv = ok ? a * wv_s[NS - 1] + (T(1) - a) * wv_s[0] : T(0);
+  for (int ai = 0; ai < st.A; ++ai)
+    at[ai] = ok ? a * at_s[NS - 1][ai] + (T(1) - a) * at_s[0][ai] : T(0);
   return ok;
-}
-
-// The full column's layer at the start position p0 (the layer the TPU
-// step loop's repair returns): binary search for a streamline, first-hit linear
-// search (front snapshot) for a pathline.
-template <typename T>
-__device__ int start_layer(Particle<T>& s, const T* p0, bool pathline) {
-  T w[K_MAX];
-  geometry(s.vp, s.nv, p0, w);
-  z_profile(s.z, s.row, w, s.nv, s.L);
-  bool ok;
-  return pathline ? layer_linear(s.z, s.L, s.depth_neg, ok)
-                  : layer_binary(s.z, s.L, s.depth_neg);
 }
 
 __device__ inline int clamp_start(int s, int L, int W) {
   return s < 0 ? 0 : (s > L - W ? L - W : s);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(128)
-window_streamline_kernel(const T* __restrict__ pos,
-                         const T* __restrict__ depth_neg,
-                         const int32_t* __restrict__ nv_in,
-                         const int32_t* __restrict__ vids,
-                         const int32_t* __restrict__ s_in,
-                         const T* __restrict__ table, int n, int K, int F,
-                         int L, int W, T dt, int euler,
-                         T* __restrict__ new_pos, T* __restrict__ hvel,
-                         T* __restrict__ wvel, bool* __restrict__ ok_out,
-                         int32_t* __restrict__ layer_out,
-                         bool* __restrict__ miss_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-
-  Particle<T> s;
-  load_cell(s, i, nv_in, vids, K, F, L, depth_neg, table, (const T*)nullptr,
-            (const T**)nullptr);
-  Window<T> win;
-  win.s = clamp_start(s_in[i], L, W);
-  win.W = W;
-  win.L = L;
-  const T p0[3] = {pos[3 * (int64_t)i], pos[3 * (int64_t)i + 1],
-                   pos[3 * (int64_t)i + 2]};
-  int layer = 1;
-  bool miss = false;
-  auto eval = [&](const T* p, int stage, T* hv, T& wv, T*) {
-    int lay;
-    bool m;
-    const bool ok = eval_streamline_w(s, win, p, hv, wv, lay, m);
-    if (stage == 0) layer = lay;
-    miss = miss || m;
-    return ok;
-  };
-  T hv[3], wv, np_[3];
-  bool ok = rk_step(p0, dt, euler, 0, eval, np_, hv, wv, (T*)nullptr);
-  if (miss) {            // the full column: K1's step and the start layer
-    auto full = [&](const T* p, int, T* hv_, T& wv_, T*) {
-      return eval_streamline(s, s.row, p, hv_, wv_);
-    };
-    ok = rk_step(p0, dt, euler, 0, full, np_, hv, wv, (T*)nullptr);
-    layer = start_layer(s, p0, false);
-  }
-  for (int c = 0; c < 3; ++c) {
-    new_pos[3 * (int64_t)i + c] = np_[c];
-    hvel[3 * (int64_t)i + c] = hv[c];
-  }
-  wvel[i] = wv;
-  ok_out[i] = ok;
-  layer_out[i] = layer < 1 ? 1 : (layer > L - 1 ? L - 1 : layer);
-  miss_out[i] = miss;
+// T values of one particle's slot: weights (K), front records, back
+// records (K4), made odd so that the groups of a warp, which read their
+// slots at the same offsets, fall on different banks.
+__host__ __device__ inline int slot_values(int K, int W, int A,
+                                           bool pathline) {
+  const int part = (5 + A) * W;
+  int S = K + K * (5 + part) + (pathline ? K * part : 0);
+  return S + (S % 2 == 0);
 }
 
-template <typename T>
-__global__ void __launch_bounds__(128)
-window_pathline_kernel(const T* __restrict__ pos,
-                       const T* __restrict__ depth_neg,
-                       const int32_t* __restrict__ nv_in,
-                       const int32_t* __restrict__ vids,
-                       const int32_t* __restrict__ s_in,
-                       const T* __restrict__ table_f,
-                       const T* __restrict__ table_b, int n, int K, int F,
-                       int L, int W, int n_attrs, T dt, T a1, T a2, T a4,
-                       int euler, T* __restrict__ new_pos,
-                       T* __restrict__ hvel, T* __restrict__ wvel,
-                       bool* __restrict__ ok_out,
-                       int32_t* __restrict__ layer_out,
-                       bool* __restrict__ miss_out, T* __restrict__ attr) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+// The window step of one particle by its group (K3 when !PATH, K4 when
+// PATH): outputs as the TPU kernel's, miss lanes not repaired.
+template <typename T, int WT, bool PATH>
+__device__ void window_step(const T* __restrict__ pos,
+                            const T* __restrict__ depth_neg,
+                            const int32_t* __restrict__ nv_in,
+                            const int32_t* __restrict__ vids,
+                            const int32_t* __restrict__ s_in,
+                            const T* __restrict__ table_f,
+                            const T* __restrict__ table_b, int n, int K,
+                            int F, int L, int W, int n_attrs, T dt, T a1,
+                            T a2, T a4, int euler, T* __restrict__ new_pos,
+                            T* __restrict__ hvel, T* __restrict__ wvel,
+                            bool* __restrict__ ok_out,
+                            int32_t* __restrict__ layer_out,
+                            bool* __restrict__ miss_out,
+                            T* __restrict__ attr) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int G = group_size<T, PATH>();
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  const int i = blockIdx.x * (blockDim.x / G) + g;
+  if (i >= n) return;                     // the whole group leaves
+  const unsigned gmask =
+      G == 32 ? 0xffffffffu
+              : ((1u << (G % 32)) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  const int A = PATH ? n_attrs : 0;
+  const int part = (5 + A) * W;
+  T* slot = reinterpret_cast<T*>(smem_raw) +
+            (size_t)g * slot_values(K, W, A, PATH);
+  const int nvr = nv_in[i];
+  const int nv = nvr < K ? nvr : K;
+  const int s = clamp_start(s_in[i], L, W);
+  Staged<T> st;
+  st.w = slot;
+  T* rec_f = slot + K;
+  T* rec_b = rec_f + K * (5 + part);
+  st.f = rec_f;
+  st.b = PATH ? rec_b : nullptr;
+  st.rsf = 5 + part;
+  st.rsb = part;
+  st.nv = nv;
+  st.A = A;
+  st.d = depth_neg[i];
+  stage_rows<G>(rec_f, PATH ? rec_b : (T*)nullptr, table_f, table_b,
+             vids + (int64_t)i * K, nv, F, L, W, A, s, lane);
+  __syncwarp(gmask);
 
-  Particle<T> s;
-  const T* row_b[K_MAX];
-  load_cell(s, i, nv_in, vids, K, F, L, depth_neg, table_f, table_b, row_b);
-  Window<T> win;
-  win.s = clamp_start(s_in[i], L, W);
-  win.W = W;
-  win.L = L;
+  T bk[(K_MAX + G - 1) / G];              // B_k, fixed for the step
+#pragma unroll
+  for (int q = 0; q < (K_MAX + G - 1) / G; ++q) {
+    const int k = lane + q * G;
+    bk[q] = T(1);
+    if (k < nv)
+      bk[q] = tri_area(st.f + (k == 0 ? nv - 1 : k - 1) * st.rsf,
+                       st.f + k * st.rsf,
+                       st.f + (k + 1 == nv ? 0 : k + 1) * st.rsf);
+  }
   const T p0[3] = {pos[3 * (int64_t)i], pos[3 * (int64_t)i + 1],
                    pos[3 * (int64_t)i + 2]};
   int layer = 1;
   bool miss = false;
   auto eval = [&](const T* p, int stage, T* hv, T& wv, T* at) {
-    const T a = stage == 0 ? a1 : (stage == 3 ? a4 : a2);
     int lay;
     bool m;
-    const bool ok = eval_pathline_w(s, win, row_b, n_attrs, p, a, hv, wv, at,
-                                    lay, m);
+    const T a = stage == 0 ? a1 : (stage == 3 ? a4 : a2);
+    const bool ok = eval_window_stage<T, WT, PATH>(
+        st, s, W, L, bk, p, a, gmask, lane, hv, wv, at, lay, m);
     if (stage == 0) layer = lay;
     miss = miss || m;
     return ok;
   };
   T hv[3], wv, np_[3], at[A_MAX];
-  bool ok = rk_step(p0, dt, euler, n_attrs, eval, np_, hv, wv, at);
-  if (miss) {            // the full columns: K2's step and the start layer
-    auto full = [&](const T* p, int stage, T* hv_, T& wv_, T* at_) {
-      const T a = stage == 0 ? a1 : (stage == 3 ? a4 : a2);
-      return eval_pathline(s, s.row, row_b, n_attrs, p, a, hv_, wv_, at_);
-    };
-    ok = rk_step(p0, dt, euler, n_attrs, full, np_, hv, wv, at);
-    layer = start_layer(s, p0, true);
-  }
+  const bool ok = rk_step(p0, dt, euler, A, eval, np_, hv, wv, at);
+  if (lane != 0) return;
   for (int c = 0; c < 3; ++c) {
     new_pos[3 * (int64_t)i + c] = np_[c];
     hvel[3 * (int64_t)i + c] = hv[c];
@@ -859,11 +1078,70 @@ window_pathline_kernel(const T* __restrict__ pos,
   ok_out[i] = ok;
   layer_out[i] = layer < 1 ? 1 : (layer > L - 1 ? L - 1 : layer);
   miss_out[i] = miss;
-  if (attr != nullptr) {                // slots >= n_attrs are zero
-    attr[3 * (int64_t)i] = n_attrs > 0 ? at[0] : T(0);
-    attr[3 * (int64_t)i + 1] = n_attrs > 1 ? at[1] : T(0);
+  if (PATH && attr != nullptr) {          // slots >= n_attrs are zero
+    attr[3 * (int64_t)i] = A > 0 ? at[0] : T(0);
+    attr[3 * (int64_t)i + 1] = A > 1 ? at[1] : T(0);
     attr[3 * (int64_t)i + 2] = T(0);
   }
+}
+
+#define WINDOW_KERNEL_PARAMS                                                  \
+  const T *__restrict__ pos, const T *__restrict__ depth_neg,                \
+      const int32_t *__restrict__ nv_in, const int32_t *__restrict__ vids,   \
+      const int32_t *__restrict__ s_in, const T *__restrict__ table_f,       \
+      const T *__restrict__ table_b, int n, int K, int F, int L, int W,      \
+      int n_attrs, T dt, T a1, T a2, T a4, int euler,                        \
+      T *__restrict__ new_pos, T *__restrict__ hvel, T *__restrict__ wvel,   \
+      bool *__restrict__ ok_out, int32_t *__restrict__ layer_out,            \
+      bool *__restrict__ miss_out, T *__restrict__ attr
+#define WINDOW_KERNEL_ARGS                                                    \
+  pos, depth_neg, nv_in, vids, s_in, table_f, table_b, n, K, F, L, W,        \
+      n_attrs, dt, a1, a2, a4, euler, new_pos, hvel, wvel, ok_out,           \
+      layer_out, miss_out, attr
+
+// Occupancy is bounded by shared memory, not registers: no cap below 255.
+template <typename T, int WT>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+window_streamline_kernel(WINDOW_KERNEL_PARAMS) {
+  window_step<T, WT, false>(WINDOW_KERNEL_ARGS);
+}
+
+template <typename T, int WT>
+__global__ void __launch_bounds__(kBlockThreads, 1)
+window_pathline_kernel(WINDOW_KERNEL_PARAMS) {
+  window_step<T, WT, true>(WINDOW_KERNEL_ARGS);
+}
+
+template <typename T, int WT, bool PATH>
+constexpr auto window_kernel() {
+  if constexpr (PATH) return window_pathline_kernel<T, WT>;
+  else return window_streamline_kernel<T, WT>;
+}
+
+// Launch a window kernel: particles per block from the slot's size, as many
+// as fit kWindowSmemTarget (whole warps where possible, at most
+// kBlockThreads / G).
+template <typename T, int WT, bool PATH>
+int launch_window(WINDOW_KERNEL_PARAMS, void* stream) {
+  const size_t slot = (size_t)slot_values(K, W, PATH ? n_attrs : 0, PATH) *
+                      sizeof(T);
+  if (slot > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  int P = (int)(kWindowSmemTarget / slot);
+  constexpr int G = group_size<T, PATH>();
+  P = P < kBlockThreads / G ? P : kBlockThreads / G;
+  if (P >= 32 / G) P -= P % (32 / G);
+  if (P < 1) P = 1;
+  const int smem = (int)(P * slot);
+  auto kernel = window_kernel<T, WT, PATH>();
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  if (n > 0)
+    kernel<<<(n + P - 1) / P, P * G, smem, (cudaStream_t)stream>>>(
+        WINDOW_KERNEL_ARGS);
+  return (int)cudaGetLastError();
 }
 
 constexpr int kThreads = 128;
@@ -874,12 +1152,13 @@ template <typename T>
 int launch_streamline(const T* pos, const T* depth_neg, const int32_t* nv,
                       const int32_t* vids, const T* table, int n, int K, int F,
                       int L, T dt, int euler, T* new_pos, T* hvel, T* wvel,
-                      bool* ok, void* stream) {
+                      bool* ok, const bool* only, int32_t* layer,
+                      void* stream) {
   if (n > 0)
     streamline_step_kernel<T><<<blocks_for(n), kThreads, 0,
                                 (cudaStream_t)stream>>>(
         pos, depth_neg, nv, vids, table, n, K, F, L, dt, euler, new_pos, hvel,
-        wvel, ok);
+        wvel, ok, only, layer);
   return (int)cudaGetLastError();
 }
 
@@ -888,49 +1167,24 @@ int launch_pathline(const T* pos, const T* depth_neg, const int32_t* nv,
                     const int32_t* vids, const T* table_f, const T* table_b,
                     int n, int K, int F, int L, int n_attrs, T dt, T a1, T a2,
                     T a4, int euler, T* new_pos, T* hvel, T* wvel, bool* ok,
-                    T* attr, void* stream) {
+                    T* attr, const bool* only, int32_t* layer, void* stream) {
   if (n_attrs < 0 || n_attrs > A_MAX) return (int)cudaErrorInvalidValue;
   if (n > 0)
     pathline_step_kernel<T><<<blocks_for(n), kThreads, 0,
                               (cudaStream_t)stream>>>(
         pos, depth_neg, nv, vids, table_f, table_b, n, K, F, L, n_attrs, dt,
-        a1, a2, a4, euler, new_pos, hvel, wvel, ok, attr);
+        a1, a2, a4, euler, new_pos, hvel, wvel, ok, attr, only, layer);
   return (int)cudaGetLastError();
 }
 
-template <typename T>
-int launch_window_streamline(const T* pos, const T* depth_neg,
-                             const int32_t* nv, const int32_t* vids,
-                             const int32_t* s, const T* table, int n, int K,
-                             int F, int L, int W, T dt, int euler, T* new_pos,
-                             T* hvel, T* wvel, bool* ok, int32_t* layer,
-                             bool* miss, void* stream) {
+// The window kernels for W == 8 (the main path's) or any W <= W_MAX.
+template <typename T, bool PATH>
+int launch_window_any(WINDOW_KERNEL_PARAMS, void* stream) {
   if (W < 2 || W > W_MAX || W > L) return (int)cudaErrorInvalidValue;
-  if (n > 0)
-    window_streamline_kernel<T><<<blocks_for(n), kThreads, 0,
-                                  (cudaStream_t)stream>>>(
-        pos, depth_neg, nv, vids, s, table, n, K, F, L, W, dt, euler, new_pos,
-        hvel, wvel, ok, layer, miss);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_window_pathline(const T* pos, const T* depth_neg,
-                           const int32_t* nv, const int32_t* vids,
-                           const int32_t* s, const T* table_f,
-                           const T* table_b, int n, int K, int F, int L,
-                           int W, int n_attrs, T dt, T a1, T a2, T a4,
-                           int euler, T* new_pos, T* hvel, T* wvel, bool* ok,
-                           int32_t* layer, bool* miss, T* attr,
-                           void* stream) {
-  if (W < 2 || W > W_MAX || W > L) return (int)cudaErrorInvalidValue;
-  if (n_attrs < 0 || n_attrs > A_MAX) return (int)cudaErrorInvalidValue;
-  if (n > 0)
-    window_pathline_kernel<T><<<blocks_for(n), kThreads, 0,
-                                (cudaStream_t)stream>>>(
-        pos, depth_neg, nv, vids, s, table_f, table_b, n, K, F, L, W, n_attrs,
-        dt, a1, a2, a4, euler, new_pos, hvel, wvel, ok, layer, miss, attr);
-  return (int)cudaGetLastError();
+  if (n_attrs < 0 || n_attrs > A_MAX || K > K_MAX)
+    return (int)cudaErrorInvalidValue;
+  return W == 8 ? launch_window<T, 8, PATH>(WINDOW_KERNEL_ARGS, stream)
+                : launch_window<T, W_MAX, PATH>(WINDOW_KERNEL_ARGS, stream);
 }
 
 }  // namespace
@@ -950,54 +1204,33 @@ int stage_kernel_k_max() { return K_MAX; }
 int stage_kernel_l_max() { return L_MAX; }
 int stage_kernel_a_max() { return A_MAX; }
 int stage_kernel_w_max() { return W_MAX; }
-
-int streamline_step_f32(const float* pos, const float* depth_neg,
-                        const int32_t* nv, const int32_t* vids,
-                        const float* table, int n, int K, int F, int L,
-                        float dt, int euler, float* new_pos, float* hvel,
-                        float* wvel, bool* ok, void* stream) {
-  return launch_streamline<float>(pos, depth_neg, nv, vids, table, n, K, F, L,
-                                  dt, euler, new_pos, hvel, wvel, ok, stream);
-}
 #endif
 
-#if STAGE_HAS(2)
-int streamline_step_f64(const double* pos, const double* depth_neg,
-                        const int32_t* nv, const int32_t* vids,
-                        const double* table, int n, int K, int F, int L,
-                        double dt, int euler, double* new_pos, double* hvel,
-                        double* wvel, bool* ok, void* stream) {
-  return launch_streamline<double>(pos, depth_neg, nv, vids, table, n, K, F, L,
-                                   dt, euler, new_pos, hvel, wvel, ok, stream);
-}
-#endif
+// K1 and K2: ``only`` and ``layer`` are null for a plain step, and the miss
+// flags and the window's layer output for the repair of a window step.
+#define STREAMLINE_ENTRY(T, tag)                                               \
+  int streamline_step_##tag(                                                   \
+      const T* pos, const T* depth_neg, const int32_t* nv,                     \
+      const int32_t* vids, const T* table, int n, int K, int F, int L, T dt,   \
+      int euler, T* new_pos, T* hvel, T* wvel, bool* ok, const bool* only,     \
+      int32_t* layer, void* stream) {                                          \
+    return launch_streamline<T>(pos, depth_neg, nv, vids, table, n, K, F, L,   \
+                                dt, euler, new_pos, hvel, wvel, ok, only,      \
+                                layer, stream);                                \
+  }
 
-#if STAGE_HAS(3)
-int pathline_step_f32(const float* pos, const float* depth_neg,
-                      const int32_t* nv, const int32_t* vids,
-                      const float* table_f, const float* table_b, int n, int K,
-                      int F, int L, int n_attrs, float dt, float a1, float a2,
-                      float a4, int euler, float* new_pos, float* hvel,
-                      float* wvel, bool* ok, float* attr, void* stream) {
-  return launch_pathline<float>(pos, depth_neg, nv, vids, table_f, table_b, n,
-                                K, F, L, n_attrs, dt, a1, a2, a4, euler,
-                                new_pos, hvel, wvel, ok, attr, stream);
-}
-#endif
-
-#if STAGE_HAS(4)
-int pathline_step_f64(const double* pos, const double* depth_neg,
-                      const int32_t* nv, const int32_t* vids,
-                      const double* table_f, const double* table_b, int n,
-                      int K, int F, int L, int n_attrs, double dt, double a1,
-                      double a2, double a4, int euler, double* new_pos,
-                      double* hvel, double* wvel, bool* ok, double* attr,
-                      void* stream) {
-  return launch_pathline<double>(pos, depth_neg, nv, vids, table_f, table_b, n,
-                                 K, F, L, n_attrs, dt, a1, a2, a4, euler,
-                                 new_pos, hvel, wvel, ok, attr, stream);
-}
-#endif
+#define PATHLINE_ENTRY(T, tag)                                                 \
+  int pathline_step_##tag(                                                     \
+      const T* pos, const T* depth_neg, const int32_t* nv,                     \
+      const int32_t* vids, const T* table_f, const T* table_b, int n, int K,   \
+      int F, int L, int n_attrs, T dt, T a1, T a2, T a4, int euler,            \
+      T* new_pos, T* hvel, T* wvel, bool* ok, T* attr, const bool* only,       \
+      int32_t* layer, void* stream) {                                          \
+    return launch_pathline<T>(pos, depth_neg, nv, vids, table_f, table_b, n,   \
+                              K, F, L, n_attrs, dt, a1, a2, a4, euler,         \
+                              new_pos, hvel, wvel, ok, attr, only, layer,      \
+                              stream);                                         \
+  }
 
 #define WINDOW_STREAMLINE_ENTRY(T, tag)                                        \
   int window_streamline_step_##tag(                                            \
@@ -1005,9 +1238,10 @@ int pathline_step_f64(const double* pos, const double* depth_neg,
       const int32_t* vids, const int32_t* s, const T* table, int n, int K,     \
       int F, int L, int W, T dt, int euler, T* new_pos, T* hvel, T* wvel,      \
       bool* ok, int32_t* layer, bool* miss, void* stream) {                    \
-    return launch_window_streamline<T>(pos, depth_neg, nv, vids, s, table, n,  \
-                                       K, F, L, W, dt, euler, new_pos, hvel,   \
-                                       wvel, ok, layer, miss, stream);         \
+    return launch_window_any<T, false>(                                        \
+        pos, depth_neg, nv, vids, s, table, table, n, K, F, L, W, 0, dt, T(0), \
+        T(0), T(0), euler, new_pos, hvel, wvel, ok, layer, miss, (T*)nullptr,  \
+        stream);                                                               \
   }
 
 #define WINDOW_PATHLINE_ENTRY(T, tag)                                          \
@@ -1017,12 +1251,24 @@ int pathline_step_f64(const double* pos, const double* depth_neg,
       const T* table_b, int n, int K, int F, int L, int W, int n_attrs, T dt,  \
       T a1, T a2, T a4, int euler, T* new_pos, T* hvel, T* wvel, bool* ok,     \
       int32_t* layer, bool* miss, T* attr, void* stream) {                     \
-    return launch_window_pathline<T>(pos, depth_neg, nv, vids, s, table_f,     \
-                                     table_b, n, K, F, L, W, n_attrs, dt, a1,  \
-                                     a2, a4, euler, new_pos, hvel, wvel, ok,   \
-                                     layer, miss, attr, stream);               \
+    return launch_window_any<T, true>(                                         \
+        pos, depth_neg, nv, vids, s, table_f, table_b, n, K, F, L, W, n_attrs, \
+        dt, a1, a2, a4, euler, new_pos, hvel, wvel, ok, layer, miss, attr,     \
+        stream);                                                               \
   }
 
+#if STAGE_HAS(1)
+STREAMLINE_ENTRY(float, f32)
+#endif
+#if STAGE_HAS(2)
+STREAMLINE_ENTRY(double, f64)
+#endif
+#if STAGE_HAS(3)
+PATHLINE_ENTRY(float, f32)
+#endif
+#if STAGE_HAS(4)
+PATHLINE_ENTRY(double, f64)
+#endif
 #if STAGE_HAS(5)
 WINDOW_STREAMLINE_ENTRY(float, f32)
 #endif

@@ -11,32 +11,25 @@ columns.  Each wrapper launches its kernel for CUDA tensors and runs the
 plain version for CPU tensors; a CUDA tensor never falls back to the plain
 version.
 
-All four kernels are compiled with nvcc for sm_90a into ``mops_tpu_torch/_build/``
-at first use (one shared library with a plain C entry point per kernel and
-dtype, loaded with ctypes).  Importing this module builds nothing.
+All four kernels are compiled with nvcc for sm_90a into
+``mops_tpu_torch/_build/`` at first use (one shared library with a plain C
+entry point per kernel and dtype, loaded with ctypes; see nvcc_build).
+Importing this module builds nothing.
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import time
 from pathlib import Path
 
 import torch
 
+from .nvcc_build import build_library
 from ..step import (pathline_step, start_layer, streamline_step, window_cols,
                     window_pathline_step, window_streamline_step)
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "stage_kernel.cu"
-BUILD_DIR = _PKG / "_build"
-# IEEE division and square root are required (see the source): no fast-math.
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
 # The source's entries are compiled as this many translation units at once
 # (STAGE_PART in the source), then linked into one library.
 BUILD_PARTS = 8
@@ -71,68 +64,14 @@ def table_width(n_layers: int, n_attrs: int = 0) -> int:
     return 3 + 4 * n_layers + n_layers + 1 + n_layers * n_attrs
 
 
-def _nvcc() -> str:
-    from torch.utils.cpp_extension import CUDA_HOME
-    if CUDA_HOME is not None:
-        cand = os.path.join(CUDA_HOME, "bin", "nvcc")
-        if os.path.exists(cand):
-            return cand
-    found = shutil.which("nvcc")
-    if found is None:
-        raise RuntimeError("nvcc not found: the fused step kernel is built "
-                           "from csrc/stage_kernel.cu at first use")
-    return found
-
-
-def build(verbose: bool = False) -> Path:
+def build() -> Path:
     """Compile the kernel library (cached by source and flags) and return its
     path: one nvcc process per part of the source, all started together,
-    then one link.  ``verbose`` adds ptxas's register/spill report to
-    BUILD_LOG."""
+    then one link.  BUILD_LOG holds the build's log with ptxas's
+    register/spill report."""
     global BUILD_LOG
-    key = hashlib.sha1(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-                       + str(BUILD_PARTS).encode()).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"libstage_kernel_{key}.so"
-    if lib_path.exists():
-        return lib_path
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tag = f"{key}.{os.getpid()}"
-    objs = [BUILD_DIR / f"stage_kernel_{tag}.{p}.o"
-            for p in range(1, BUILD_PARTS + 1)]
-    tmp = lib_path.with_suffix(f".{os.getpid()}.tmp")
-    t0 = time.perf_counter()
-    flags = NVCC_FLAGS + (["-Xptxas", "-v"] if verbose else [])
-    nvcc = _nvcc()
-    procs = []
-    try:
-        for p, obj in enumerate(objs, start=1):
-            procs.append(subprocess.Popen(
-                [nvcc, *flags, f"-DSTAGE_PART={p}", "-c", "-o", str(obj),
-                 str(SOURCE)], stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True))
-        logs = []
-        for proc in procs:
-            out, err = proc.communicate()
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{err}")
-            logs.append(out + err)
-        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
-                               str(tmp), *map(str, objs)],
-                              capture_output=True, text=True)
-        if link.returncode != 0:
-            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
-                               f"{link.stderr}")
-        os.replace(tmp, lib_path)
-    finally:
-        for proc in procs:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-        for path in (*objs, tmp):
-            path.unlink(missing_ok=True)
-    BUILD_LOG = (f"built {lib_path.name} in {time.perf_counter() - t0:.1f} s "
-                 f"({BUILD_PARTS} parts in parallel)\n" + "".join(logs))
-    return lib_path
+    path, BUILD_LOG = build_library(SOURCE, "stage_kernel", BUILD_PARTS)
+    return path
 
 
 def _library() -> ctypes.CDLL:
@@ -142,11 +81,12 @@ def _library() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         for tag, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
             fn = getattr(lib, f"streamline_step_{tag}")
-            fn.argtypes = [P, P, P, P, P, I, I, I, I, real, I, P, P, P, P, P]
+            fn.argtypes = [P, P, P, P, P, I, I, I, I, real, I, P, P, P, P, P,
+                           P, P]
             fn.restype = I
             fn = getattr(lib, f"pathline_step_{tag}")
             fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, real, real, real,
-                           real, I, P, P, P, P, P, P]
+                           real, I, P, P, P, P, P, P, P, P]
             fn.restype = I
             fn = getattr(lib, f"window_streamline_step_{tag}")
             fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, real, I, P, P, P,
@@ -245,7 +185,7 @@ def fused_streamline_step(pos, depth_neg, nv, vids, table, n_layers: int,
         err = fn(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
                  vids.data_ptr(), table.data_ptr(), n, K, F, n_layers, float(dt),
                  int(bool(euler)), new_pos.data_ptr(), hvel.data_ptr(),
-                 wvel.data_ptr(), ok.data_ptr(), stream)
+                 wvel.data_ptr(), ok.data_ptr(), None, None, stream)
     _raise_on(name, err)
     fused_streamline_step.launches += 1
     return new_pos, hvel, wvel, ok
@@ -310,7 +250,7 @@ def fused_pathline_step(pos, depth_neg, nv, vids, table_f, table_b,
                  F, n_layers, n_attrs, float(dt), a1, a2, a4,
                  int(bool(euler)), new_pos.data_ptr(), hvel.data_ptr(),
                  wvel.data_ptr(), ok.data_ptr(),
-                 None if attr is None else attr.data_ptr(), stream)
+                 None if attr is None else attr.data_ptr(), None, None, stream)
     _raise_on(name, err)
     fused_pathline_step.launches += 1
     return new_pos, hvel, wvel, ok, attr
@@ -392,8 +332,10 @@ def fused_window_streamline_step(pos, depth_neg, nv, vids, s, table,
     full step's.  layer is the layer at the start position (the next
     window's centre).
 
-    CUDA tensors launch the kernel (counted in
-    ``fused_window_streamline_step.launches``); CPU tensors run
+    CUDA tensors launch the window kernel (counted in
+    ``fused_window_streamline_step.launches``), then K1 masked by the miss
+    flags on the same stream, which recomputes the miss lanes (counted in
+    ``.repair_launches``, not in K1's launches); CPU tensors run
     ``fused_window_streamline_step_plain``.
     """
     name = "fused_window_streamline_step"
@@ -406,20 +348,31 @@ def fused_window_streamline_step(pos, depth_neg, nv, vids, s, table,
     _kernel_device(name, pos, K, n_layers)
     out = _window_outputs(pos, depth_neg)
     lib = _library()
-    fn = lib.window_streamline_step_f32 if pos.dtype == torch.float32 \
+    f32 = pos.dtype == torch.float32
+    fn = lib.window_streamline_step_f32 if f32 \
         else lib.window_streamline_step_f64
+    repair = lib.streamline_step_f32 if f32 else lib.streamline_step_f64
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
                  vids.data_ptr(), s.data_ptr(), table.data_ptr(), n, K, F,
                  n_layers, n_window, float(dt), int(bool(euler)),
                  *(t.data_ptr() for t in out[:6]), stream)
-    _raise_on(name, err)
-    fused_window_streamline_step.launches += 1
+        _raise_on(name, err)
+        fused_window_streamline_step.launches += 1
+        # the miss lanes' full-column step (K1, masked by the miss flags)
+        err = repair(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
+                     vids.data_ptr(), table.data_ptr(), n, K, F, n_layers,
+                     float(dt), int(bool(euler)),
+                     *(t.data_ptr() for t in out[:4]), out[5].data_ptr(),
+                     out[4].data_ptr(), stream)
+        _raise_on(f"{name} (repair)", err)
+        fused_window_streamline_step.repair_launches += 1
     return out[:6]
 
 
 fused_window_streamline_step.launches = 0
+fused_window_streamline_step.repair_launches = 0
 
 
 def _window_inputs(table, vids, s, n_layers, n_window, n_attrs):
@@ -464,8 +417,9 @@ def fused_window_pathline_step(pos, depth_neg, nv, vids, s, table_f, table_b,
     columns (K2's arithmetic), and layer is the front snapshot's at the
     start position.
 
-    CUDA tensors launch the kernel (counted in
-    ``fused_window_pathline_step.launches``); CPU tensors run
+    CUDA tensors launch the window kernel (counted in
+    ``fused_window_pathline_step.launches``), then K2 masked by the miss
+    flags (counted in ``.repair_launches``); CPU tensors run
     ``fused_window_pathline_step_plain``.
     """
     name = "fused_window_pathline_step"
@@ -480,9 +434,12 @@ def fused_window_pathline_step(pos, depth_neg, nv, vids, s, table_f, table_b,
             n_window, dt, alphas, euler, n_attrs)
     _kernel_device(name, pos, K, n_layers)
     out = _window_outputs(pos, depth_neg, n_attrs)
+    attr = None if out[6] is None else out[6].data_ptr()
     lib = _library()
-    fn = lib.window_pathline_step_f32 if pos.dtype == torch.float32 \
+    f32 = pos.dtype == torch.float32
+    fn = lib.window_pathline_step_f32 if f32 \
         else lib.window_pathline_step_f64
+    repair = lib.pathline_step_f32 if f32 else lib.pathline_step_f64
     a1, a2, a4 = (float(a) for a in alphas)
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -490,14 +447,22 @@ def fused_window_pathline_step(pos, depth_neg, nv, vids, s, table_f, table_b,
                  vids.data_ptr(), s.data_ptr(), table_f.data_ptr(),
                  table_b.data_ptr(), n, K, F, n_layers, n_window, n_attrs,
                  float(dt), a1, a2, a4, int(bool(euler)),
-                 *(t.data_ptr() for t in out[:6]),
-                 None if out[6] is None else out[6].data_ptr(), stream)
-    _raise_on(name, err)
-    fused_window_pathline_step.launches += 1
+                 *(t.data_ptr() for t in out[:6]), attr, stream)
+        _raise_on(name, err)
+        fused_window_pathline_step.launches += 1
+        # the miss lanes' full-column step (K2, masked by the miss flags)
+        err = repair(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
+                     vids.data_ptr(), table_f.data_ptr(), table_b.data_ptr(),
+                     n, K, F, n_layers, n_attrs, float(dt), a1, a2, a4,
+                     int(bool(euler)), *(t.data_ptr() for t in out[:4]),
+                     attr, out[5].data_ptr(), out[4].data_ptr(), stream)
+        _raise_on(f"{name} (repair)", err)
+        fused_window_pathline_step.repair_launches += 1
     return out
 
 
 fused_window_pathline_step.launches = 0
+fused_window_pathline_step.repair_launches = 0
 
 
 def fused_window_pathline_step_plain(pos, depth_neg, nv, vids, s, table_f,

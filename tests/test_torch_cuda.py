@@ -1,6 +1,7 @@
-"""The CUDA fused step kernels (K1 streamline, K2 pathline, and their
-layer-window forms K3 and K4) against their plain PyTorch versions, on a
-card.
+"""The CUDA kernels against their plain PyTorch versions, on a card: the
+fused step kernels (K1 streamline, K2 pathline, their layer-window forms K3
+and K4 with the masked K1/K2 repair of their miss lanes) and the row-gather
+probe K5.
 
 Imports no jax, so it runs where only torch is installed; the repo's
 conftest imports jax, so run it on the card with
@@ -9,7 +10,9 @@ conftest imports jax, so run it on the card with
 
 Without a card every test skips.  Float64 tolerances are test_pallas.py's:
 positions 1e-6 m, hvel 1e-10 m/s, wvel 1e-12 m/s, ok equal; attributes
-1e-8 (test_advect.py's pathline attribute tolerance).
+1e-8 (test_advect.py's pathline attribute tolerance).  K5: heads
+bit-equal, block sums within 1e-12 of the sum of the block's magnitudes
+(the same values added in other orders).
 """
 
 import numpy as np
@@ -18,6 +21,7 @@ import torch
 
 import mops_tpu_torch as mtt
 from mops_tpu_torch import advect
+from mops_tpu_torch.kernels import row_gather as rg
 from mops_tpu_torch.kernels import stage_kernel as sk
 from mops_tpu_torch.kernels.stage_kernel import (fused_pathline_step,
                                                  fused_pathline_step_plain,
@@ -195,14 +199,15 @@ W = 4
 
 
 def _window_starts(pos, dn, nv, vids, table, L):
-    """Starts around each lane's layer, shifted by two layers on some lanes
-    so that their depth leaves the window (misses)."""
+    """Starts around each lane's layer, moved to the far end of the column
+    on a third of the lanes (every third) so that their depth leaves the
+    window or nears its edge (misses)."""
     rows = table[vids.long()]
     layer = start_layer(rows[..., 3:3 + L], pos, dn, nv, rows[..., :3], False)
     s = window_starts(layer, L, W)
-    shift = torch.zeros_like(s)
-    shift[60:100:2], shift[61:100:2] = 2, -2
-    return torch.clamp(s + shift, 0, L - W).to(torch.int32).contiguous()
+    far = torch.where(s < (L - W + 1) // 2, L - W, 0)
+    moved = torch.arange(len(s), device=s.device) % 3 == 2
+    return torch.where(moved, far, s).to(torch.int32).contiguous()
 
 
 @pytest.mark.cuda
@@ -228,10 +233,15 @@ def test_window_kernel_matches_plain_f64(card, card_back, path, euler):
         args, extra = (pos, dn, nv, vids, s, tf, tb, L, W, DT), \
             ((0.996, 1.0, 1.0),)
         kw = {"n_attrs": n_attrs}
-    before = fn.launches
+    full = sk.fused_pathline_step if path != "streamline" \
+        else sk.fused_streamline_step
+    before = (fn.launches, fn.repair_launches, full.launches)
     got = fn(*args, *extra, euler=euler, **kw)
     torch.cuda.synchronize()
-    assert fn.launches == before + 1
+    # one window launch and one masked repair launch; K1/K2's own count
+    # does not move
+    assert (fn.launches, fn.repair_launches, full.launches) \
+        == (before[0] + 1, before[1] + 1, before[2])
     want = plain(*args, *extra, euler=euler, **kw)
     for a, b, tol in zip(got[:3], want[:3], (1e-6, 1e-10, 1e-12)):
         torch.testing.assert_close(a, b, rtol=0, atol=tol, equal_nan=True)
@@ -262,9 +272,12 @@ def test_windowed_run_matches_plain_path_f64(card, card_back, pathline):
             np.float32))
     fn = sk.fused_window_pathline_step if pathline \
         else sk.fused_window_streamline_step
-    before = fn.launches
+    full = sk.fused_pathline_step if pathline else sk.fused_streamline_step
+    before = (fn.launches, fn.repair_launches, full.launches)
     a = mtt.run_advection(mesh, sol, seeds, cells, cfg, back=back, window=W)
-    assert fn.launches == before + cfg.n_steps
+    # one window launch and one masked repair launch a step, no K1/K2 launch
+    assert (fn.launches, fn.repair_launches, full.launches) == (
+        before[0] + cfg.n_steps, before[1] + cfg.n_steps, before[2])
     b = mtt.run_advection(mesh, sol, seeds, cells, cfg, back=back,
                           use_kernel=False)
     torch.testing.assert_close(a.points, b.points, rtol=0, atol=1e-6)
@@ -287,3 +300,35 @@ def test_window_kernel_ceilings_raise(card):
     with pytest.raises(ValueError, match="window"):
         sk.fused_window_streamline_step(pos, dn, nv, vids, s, table, L, L + 1,
                                         DT)
+
+
+# --- the row-gather probe (K5) ------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("F", [3072, 320], ids=["F>=1024", "F<1024"])
+def test_row_gather_matches_plain(card, dtype, F):
+    rng = np.random.default_rng(7)
+    table = torch.as_tensor(rng.normal(size=(1000, F)), dtype=dtype,
+                            device="cuda")
+    ids = torch.as_tensor(rng.integers(0, 1000, size=(64 * 16,)),
+                          dtype=torch.int32, device="cuda")
+    before = rg.row_gather_probe.launches
+    head, sums = rg.row_gather_probe(table, ids, 16)
+    torch.cuda.synchronize()
+    assert rg.row_gather_probe.launches == before + 1
+    want_head, want_sums = rg.row_gather_plain(table, ids, 16)
+    scale = rg.row_gather_plain(table.abs(), ids, 16)[1]
+    assert torch.equal(head, want_head)
+    assert bool(((sums - want_sums).abs() <= 1e-12 * scale).all())
+
+
+@pytest.mark.cuda
+def test_row_gather_raises_on_bad_ids(card):
+    table = torch.zeros((10, 256), dtype=torch.float32, device="cuda")
+    ids = torch.zeros(32, dtype=torch.int32, device="cuda")
+    ids[5] = 10
+    with pytest.raises(ValueError, match="outside"):
+        rg.row_gather_probe(table, ids, 16)
