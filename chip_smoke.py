@@ -11,15 +11,17 @@ success):
    mops_tpu_torch/_build/, both started together), and ptxas's registers
    and spills of every kernel.
 1. kernel checks at the slice's shape (K = the mesh's maxEdges, L = 60, all
-   particles), each kernel against its plain PyTorch version on the same
+   particles; K2's shared memory a particle and particles a block at that
+   shape), each kernel against its plain PyTorch version on the same
    inputs, float32 and float64, RK4 and Euler, with out-of-cell,
    below-bottom, above-surface and dead lanes; per-step times of both:
    K1 (streamline); K2 (pathline: two snapshots, 0 and 2 attributes, stage
    alphas mid-run and near 1, where the clip engages); K3 and K4 (their
    layer-window forms, W = 8, windows placed around each lane's layer and
    moved off it on some lanes so that they miss; each call is the window
-   kernel and K1's (K2's) masked repair of the miss lanes; K3 and K4 are
-   timed in their Euler form too, to part a stage's cost from the rest).
+   kernel and K1's (K2's) masked repair of the miss lanes; K2, K3 and K4
+   are timed in their Euler form too, to part a stage's cost from the
+   rest).
 1c. the row-gather probe K5: its main path, ``python -m
    mops_tpu_torch.prof_dma`` at prof_dma.py's shape, driven with the counts
    set to 0 just before it; then the kernel against its plain version and
@@ -47,7 +49,9 @@ success):
    torch path on the card, streamline and pathline, float32 and float64.
 4. profile: torch.profiler over a 30-step run of each kernel path, in
    float32 and float64: the device's busy time, its idle share and the
-   time per device kernel (PERF.md, "Where the time goes").
+   time per device kernel (PERF.md, "Where the time goes"); on the window
+   paths the masked K1 (K2) repair launches' device time apart from K3's
+   (K4's).
 
 The line before the card's name lists each kernel with its launches on
 its main path, its time and its plain version's time at the slice shape,
@@ -416,6 +420,13 @@ def main():
                               if label.split()[0] == kname}
         if not rows[key]["ptxas"]:
             fail(f"no ptxas report for {kname}")
+    rows["k2"]["layout"] = {}
+    for real, tag in ((f32, "f32"), (f64, "f64")):
+        slot, per_block = sk.pathline_layout(K, L, real)
+        rows["k2"]["layout"][tag] = {"smem_per_particle": slot,
+                                     "particles_per_block": per_block}
+        log(f"  K2 {tag} at K={K}, L={L}: {slot} B of shared memory a "
+            f"particle, {per_block} particles a block")
 
     def lane_inputs(real):
         mesh = meshes[real]
@@ -450,7 +461,7 @@ def main():
         """Hold ``call`` against ``plain``; on the timed case, time both per
         step (or the pair ``timed_calls``: the window kernels are timed at
         the main path's window starts); with ``timed_case="euler"`` time the
-        kernel alone (K3/K4's one-stage form: RK4's time less Euler's is
+        kernel alone (K2-K4's one-stage form: RK4's time less Euler's is
         three stages' work)."""
         got = call()
         sync()
@@ -532,8 +543,7 @@ def main():
                     name = (f"{tag} {'euler' if euler else 'rk4'} "
                             f"A={n_attrs} alphas {a_name} "
                             f"{[float(a) for a in alphas]}")
-                    timed_case = not euler and n_attrs and a_name == "mid"
-                    window_timed = n_attrs and a_name == "mid" and (
+                    timed_case = n_attrs and a_name == "mid" and (
                         "euler" if euler else True)
                     check("k2", name,
                           lambda: sk.fused_pathline_step(
@@ -553,7 +563,7 @@ def main():
                               PATH_DT, alphas, euler=euler, n_attrs=n_attrs),
                           PATH_DT, flags=(3, 4, 5),
                           attr=6 if n_attrs else None,
-                          timed_case=window_timed, real=real,
+                          timed_case=timed_case, real=real,
                           timed_calls=(
                               lambda: sk.fused_window_pathline_step(
                                   pos, dn, nv, vids, sp0, tf, tb, L, WINDOW,
@@ -614,8 +624,10 @@ def main():
             f"({res['unique_rows']} unique rows, "
             f"{res['bound_bytes'] / 1e6:.1f} MB), gathered bytes over the "
             f"memory rate {res['gathered_bound_ms']:.4f} ms ({smi})")
+        # one code path at every row length: 16-B loads into registers
         k5_rows[label] = {**res, "plain_ms": plain_ms, "library_ms": lib_ms,
-                          "max_abs_err": err, "dropped_ids": dropped}
+                          "max_abs_err": err, "dropped_ids": dropped,
+                          "path": "16-B loads into registers"}
 
     k5_case("(a) prof_dma", tab_a, ids_a, res=probe)
     k5_case("(a) prof_dma f64", tab_a.double(), ids_a, timed_case=False)
@@ -835,10 +847,18 @@ def main():
             k_ms = sum(ms for name, ms in per_name.items() if kname in name)
             if k_ms == 0.0:
                 fail(f"profile {tag}{label}: no {kname} on the device")
+            # the window paths' masked repair launch, apart from K3/K4
+            repair = "pathline_step_kernel" if pathline \
+                else "streamline_step_kernel"
+            r_ms = sum(ms for name, ms in per_name.items() if repair in name) \
+                if windowed else 0.0
             log(f"  {tag}{label}: device busy {busy:.3f} ms of a "
                 f"{window:.3f} ms window, idle share "
                 f"{100 * (1 - busy / window):.2f}%; {kname} {k_ms:.3f} ms "
-                f"({100 * k_ms / busy:.2f}% of busy) ({smi})")
+                f"({100 * k_ms / busy:.2f}% of busy)"
+                + (f"; masked repair {repair} {r_ms:.3f} ms, "
+                   f"{1e3 * r_ms / PROFILE_STEPS:.2f} us a step"
+                   if windowed else "") + f" ({smi})")
             log(f"    longest idle gap {gap[0]:.3f} ms at {gap[1]:.3f} ms "
                 f"into the window, before {gap[2][:60]}")
             for name, ms in top[:8]:
@@ -847,6 +867,11 @@ def main():
                 "busy_ms": busy, "window_ms": window, "kernel_ms": k_ms,
                 "longest_gap_ms": gap[0],
                 "top": [[nm[:90], ms] for nm, ms in top[:8]]}
+            if windowed:
+                profile_rows[f"{tag}{label}"]["repair_ms"] = r_ms
+                if pathline:
+                    rows["k2"].setdefault("repair_ms_per_step", {})[
+                        "f32" if real == f32 else "f64"] = r_ms / PROFILE_STEPS
 
     # ---- the kernels' bounds at the main paths' start inputs -------------
     bounds = {}

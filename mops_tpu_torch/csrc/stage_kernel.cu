@@ -23,7 +23,9 @@
 // and lerp in each snapshot, blended as a*back + (1-a)*front with the stage
 // alphas (a1, a2, a2, a4), no per-snapshot |v| guard, and up to two named
 // attributes lerped and blended like the velocity.  All four kernels share
-// the geometry and RK device functions below, and K1/K2 the column ones.
+// the geometry and RK device functions below; K2, K3 and K4 share the
+// grouped form (lanes a particle, the step's values staged once in shared
+// memory).
 //
 // K3 and K4 read only W layers [s, s+W) of each column per stage, s being a
 // per-particle start placed around the layer of the previous step: the
@@ -37,8 +39,8 @@
 // layer (the next window's centre) and the miss flag.  The TPU step loop
 // repairs its miss lanes afterwards with a full-column step; here the
 // wrapper launches K1 (K2) right after the window kernel, on the same
-// stream, in a masked form: a lane whose miss flag is false returns at once,
-// and a miss lane overwrites its outputs with the full-column step and its
+// stream, in a masked form: a lane whose miss flag is false is skipped, and
+// a miss lane overwrites its outputs with the full-column step and its
 // layer with the full column's at the start position.  No host sync.
 //
 // Input layout.  The TPU kernels take columns pre-gathered by XLA into a
@@ -66,12 +68,14 @@
 // attribute, about K*(L+8+2A) values, and the four RK stages re-read the
 // same rows, which stay in L1/L2.  K3/K4 replace the K*L ztop values by K*W
 // plus the two column ends, and the L-long profile loop by a W-long one.
-// K1/K2 are one thread per particle, each profile walking each row
-// contiguously (see z_profile), rows read with scalar loads, the profile in
-// thread-local memory.  K3/K4 stage every value of the step once, before
-// stage 1, in shared memory with coalesced asynchronous copies, and run the
-// stages out of shared memory and registers, a group of lanes a particle
-// (see "the layer window" below).
+// K1 is one thread per particle, each profile walking each row contiguously
+// (see z_profile), rows read with scalar loads, the profile in thread-local
+// memory.  K3/K4 stage every value of the step once, before stage 1, in
+// shared memory with coalesced asynchronous copies, and run the stages out
+// of shared memory and registers, a group of lanes a particle (see "the
+// layer window" below).  K2 stages the same way the values that its stages
+// read L at a time, the ztop columns, and spreads each profile over the
+// group's lanes (see "the full-column pathline step" below).
 //
 // Numerics: IEEE division and square root are required.  Do not build with
 // --use_fast_math or -ffast-math-style flags: the containment test relies on
@@ -131,12 +135,12 @@ __device__ inline void rotate(const T* p, const T* u, T theta, T* out) {
   out[2] = (u[2] * u[0] * omc - u[1] * st) * p[0] + (u[2] * u[1] * omc + u[0] * st) * p[1] + (ct + u[2] * u[2] * omc) * p[2];
 }
 
-// The state one particle carries through its step.
+// The state one particle carries through its step (K1).
 template <typename T>
 struct Particle {
   int L;
   int nv;                 // real vertices of the frozen cell
-  const T* row[K_MAX];    // this cell's vertex rows (the front table's)
+  const T* row[K_MAX];    // this cell's vertex rows
   T vp[K_MAX][3];         // vertex positions
   T depth_neg;
   T z[L_MAX];             // ztop profile at the current stage position
@@ -232,27 +236,6 @@ __device__ int layer_binary(const T* z, int L, T d) {
   return above ? 1 : (below ? L - 1 : ans);
 }
 
-// Pathline layer resolution (reference TBB kernel :1182-1222): above the
-// surface -> 1 (the reference's layer 0, clamped), below the bottom -> L-1,
-// else the first k in [1, L-1] whose interval holds the depth.  ok is
-// above | below | found.
-template <typename T>
-__device__ int layer_linear(const T* z, int L, T d, bool& ok) {
-  const bool above = d > z[0] + eps_layer<T>();
-  const bool below = d < z[L - 1] - eps_layer<T>();
-  int first = 1;
-  bool found = false;
-  for (int k = 1; k < L; ++k) {
-    if (d <= z[k - 1] + eps_layer<T>() && d >= z[k] - eps_layer<T>()) {
-      first = k;
-      found = true;
-      break;
-    }
-  }
-  ok = above || below || found;
-  return above ? 1 : (below ? L - 1 : first);
-}
-
 // Vertical lerp parameter; fail if |z_up - z_dn| < 1e-12 (:958-985).
 template <typename T>
 __device__ T lerp_t(const T* z, int layer, T d, bool& ok_denom) {
@@ -297,20 +280,6 @@ __device__ T pick_wvel(const T* const* row, const T* w, int nv, int L,
   return t * wu + (T(1) - t) * wd;
 }
 
-// Attribute ai of n_attrs, lerped between layer-1 and layer (reference TBB
-// kernel :1263-1317).
-template <typename T>
-__device__ T pick_attr(const T* const* row, const T* w, int nv, int L,
-                       int n_attrs, int ai, int layer, T t) {
-  const int oa = 3 + 4 * L + L + 1;
-  T au = T(0), ad = T(0);
-  for (int k = 0; k < nv; ++k) {
-    au = fma(w[k], row[k][oa + n_attrs * (layer - 1) + ai], au);
-    ad = fma(w[k], row[k][oa + n_attrs * layer + ai], ad);
-  }
-  return t * au + (T(1) - t) * ad;
-}
-
 // ---------------------------------------------------------------------------
 // stage evaluations
 // ---------------------------------------------------------------------------
@@ -342,49 +311,6 @@ __device__ bool eval_streamline(Particle<T>& s, const T* const* row,
   return ok;
 }
 
-// One snapshot's column of a pathline stage: profile, linear search, lerp
-// and picks.  Returns ok_layer && ok_denom.
-template <typename T>
-__device__ bool pathline_column(T* z, const T* const* row, const T* w,
-                                int nv, int L, T d, int n_attrs, T* hv, T& wv,
-                                T* at) {
-  z_profile(z, row, w, nv, L);
-  bool ok_layer, ok_denom;
-  const int layer = layer_linear(z, L, d, ok_layer);
-  const T t = lerp_t(z, layer, d, ok_denom);
-  T v_up[3], v_dn[3];
-  pick_velocity(row, w, nv, L, layer, v_up, v_dn);
-  for (int c = 0; c < 3; ++c) hv[c] = t * v_up[c] + (T(1) - t) * v_dn[c];
-  wv = pick_wvel(row, w, nv, L, layer, t);
-  for (int ai = 0; ai < n_attrs; ++ai)
-    at[ai] = pick_attr(row, w, nv, L, n_attrs, ai, layer, t);
-  return ok_layer && ok_denom;
-}
-
-// CalcVelocityAt(pos, cell, alpha) (pathline): both snapshots blended by a;
-// failed lanes carry zeros.
-template <typename T>
-__device__ bool eval_pathline(Particle<T>& s, const T* const* row_f,
-                              const T* const* row_b, int n_attrs, const T* p,
-                              T a, T* hv, T& wv, T* at) {
-  const int nv = s.nv, L = s.L;
-  const T d = s.depth_neg;
-  T w[K_MAX];
-  const bool inside = geometry(s.vp, nv, p, w);
-  T hv_f[3], hv_b[3], wv_f, wv_b, at_f[A_MAX], at_b[A_MAX];
-  const bool ok_f = pathline_column(s.z, row_f, w, nv, L, d, n_attrs, hv_f,
-                                    wv_f, at_f);
-  const bool ok_b = pathline_column(s.z, row_b, w, nv, L, d, n_attrs, hv_b,
-                                    wv_b, at_b);
-  const bool ok = inside && ok_f && ok_b;
-  for (int c = 0; c < 3; ++c)
-    hv[c] = ok ? a * hv_b[c] + (T(1) - a) * hv_f[c] : T(0);
-  wv = ok ? a * wv_b + (T(1) - a) * wv_f : T(0);
-  for (int ai = 0; ai < n_attrs; ++ai)
-    at[ai] = ok ? a * at_b[ai] + (T(1) - a) * at_f[ai] : T(0);
-  return ok;
-}
-
 // ---------------------------------------------------------------------------
 // the step
 // ---------------------------------------------------------------------------
@@ -405,22 +331,18 @@ __device__ void advect_on_sphere(const T* p, const T* v, T dtl, T* out) {
   if (degen) { out[0] = p[0]; out[1] = p[1]; out[2] = p[2]; }
 }
 
-// Loads the particle's frozen cell: nv (clipped to K), its vertex rows in
-// the front table (and in the back table when row_b is given), and the
-// vertex positions from the front table.
+// Loads the particle's frozen cell: nv (clipped to K), its vertex rows and
+// the vertex positions.
 template <typename T>
 __device__ void load_cell(Particle<T>& s, int i, const int32_t* nv_in,
                           const int32_t* vids, int K, int F, int L,
-                          const T* depth_neg, const T* table,
-                          const T* table_b, const T** row_b) {
+                          const T* depth_neg, const T* table) {
   s.L = L;
   const int nv = nv_in[i];
   s.nv = nv < K ? nv : K;
   s.depth_neg = depth_neg[i];
   for (int k = 0; k < s.nv; ++k) {
-    const int64_t v = (int64_t)vids[(int64_t)i * K + k] * F;
-    s.row[k] = table + v;
-    if (row_b != nullptr) row_b[k] = table_b + v;
+    s.row[k] = table + (int64_t)vids[(int64_t)i * K + k] * F;
     for (int c = 0; c < 3; ++c) s.vp[k][c] = s.row[k][c];
   }
 }
@@ -466,22 +388,19 @@ __device__ __forceinline__ bool rk_step(const T* p0, T dt, int euler,
 }
 
 // The full column's layer at the start position p0 (the layer the TPU
-// step loop's repair returns): binary search for a streamline, first-hit linear
-// search (front snapshot) for a pathline.
+// step loop's repair returns for a streamline).
 template <typename T>
-__device__ int start_layer(Particle<T>& s, const T* p0, bool pathline) {
+__device__ int start_layer(Particle<T>& s, const T* p0) {
   T w[K_MAX];
   geometry(s.vp, s.nv, p0, w);
   z_profile(s.z, s.row, w, s.nv, s.L);
-  bool ok;
-  return pathline ? layer_linear(s.z, s.L, s.depth_neg, ok)
-                  : layer_binary(s.z, s.L, s.depth_neg);
+  return layer_binary(s.z, s.L, s.depth_neg);
 }
 
 // K1 and K2 also serve as the window kernels' repair (the masked form):
-// given ``only``, a lane whose flag is false returns at once, and a lane
-// whose flag is set overwrites its outputs with the full-column step and
-// writes the start position's layer, clipped to [1, L-1], to layer_out.
+// given ``only``, a lane whose flag is false is skipped, and a lane whose
+// flag is set overwrites its outputs with the full-column step and writes
+// the start position's layer, clipped to [1, L-1], to layer_out.
 
 template <typename T>
 __global__ void __launch_bounds__(128)
@@ -498,8 +417,7 @@ streamline_step_kernel(const T* __restrict__ pos, const T* __restrict__ depth_ne
   if (i >= n || (only != nullptr && !only[i])) return;
 
   Particle<T> s;
-  load_cell(s, i, nv_in, vids, K, F, L, depth_neg, table, (const T*)nullptr,
-            (const T**)nullptr);
+  load_cell(s, i, nv_in, vids, K, F, L, depth_neg, table);
   const T p0[3] = {pos[3 * (int64_t)i], pos[3 * (int64_t)i + 1],
                    pos[3 * (int64_t)i + 2]};
   auto eval = [&](const T* p, int, T* hv, T& wv, T*) {
@@ -514,54 +432,10 @@ streamline_step_kernel(const T* __restrict__ pos, const T* __restrict__ depth_ne
   wvel[i] = wv;
   ok_out[i] = ok;
   if (only != nullptr) {
-    const int layer = start_layer(s, p0, false);
+    const int layer = start_layer(s, p0);
     layer_out[i] = layer < 1 ? 1 : (layer > L - 1 ? L - 1 : layer);
   }
 }
-
-template <typename T>
-__global__ void __launch_bounds__(128)
-pathline_step_kernel(const T* __restrict__ pos, const T* __restrict__ depth_neg,
-                     const int32_t* __restrict__ nv_in,
-                     const int32_t* __restrict__ vids,
-                     const T* __restrict__ table_f,
-                     const T* __restrict__ table_b, int n, int K, int F, int L,
-                     int n_attrs, T dt, T a1, T a2, T a4, int euler,
-                     T* __restrict__ new_pos, T* __restrict__ hvel,
-                     T* __restrict__ wvel, bool* __restrict__ ok_out,
-                     T* __restrict__ attr, const bool* __restrict__ only,
-                     int32_t* __restrict__ layer_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || (only != nullptr && !only[i])) return;
-
-  Particle<T> s;
-  const T* row_b[K_MAX];
-  load_cell(s, i, nv_in, vids, K, F, L, depth_neg, table_f, table_b, row_b);
-  const T p0[3] = {pos[3 * (int64_t)i], pos[3 * (int64_t)i + 1],
-                   pos[3 * (int64_t)i + 2]};
-  auto eval = [&](const T* p, int stage, T* hv, T& wv, T* at) {
-    const T a = stage == 0 ? a1 : (stage == 3 ? a4 : a2);
-    return eval_pathline(s, s.row, row_b, n_attrs, p, a, hv, wv, at);
-  };
-  T hv[3], wv, np_[3], at[A_MAX];
-  const bool ok = rk_step(p0, dt, euler, n_attrs, eval, np_, hv, wv, at);
-  for (int c = 0; c < 3; ++c) {
-    new_pos[3 * (int64_t)i + c] = np_[c];
-    hvel[3 * (int64_t)i + c] = hv[c];
-  }
-  wvel[i] = wv;
-  ok_out[i] = ok;
-  if (attr != nullptr) {                // slots >= n_attrs are zero
-    attr[3 * (int64_t)i] = n_attrs > 0 ? at[0] : T(0);
-    attr[3 * (int64_t)i + 1] = n_attrs > 1 ? at[1] : T(0);
-    attr[3 * (int64_t)i + 2] = T(0);
-  }
-  if (only != nullptr) {
-    const int layer = start_layer(s, p0, true);
-    layer_out[i] = layer < 1 ? 1 : (layer > L - 1 ? L - 1 : layer);
-  }
-}
-
 
 // ---------------------------------------------------------------------------
 // the layer window (K3, K4)
@@ -780,8 +654,8 @@ int layer_binary_w(const Window<T, WT>& win, T d, T z0, T zL) {
   return above ? 1 : (below ? L - 1 : ans);
 }
 
-// layer_linear over the window's intervals (layers s+1 .. s+W-1): the first
-// hit, as the loop that stops there.
+// The first-hit linear search (layer_linear_column's) over the window's
+// intervals (layers s+1 .. s+W-1), as the loop that stops at the first hit.
 template <typename T, int WT>
 __device__ __forceinline__
 int layer_linear_w(const Window<T, WT>& win, T d, T z0, T zL,
@@ -857,7 +731,8 @@ __device__ __forceinline__ int pick_offset(int m, int layer, int s, int W,
 }
 
 // One stage of the window step at p, by the particle's group (K3 when
-// !PATH, K4 when PATH; eval_streamline and eval_pathline on the window).
+// !PATH, K4 when PATH; eval_streamline and eval_column_stage on the
+// window).
 // The independent Wachspress sums of the stage are spread over the group's
 // lanes, each sum taken over k in order, and gathered into every lane's
 // registers with shuffles: first the window profiles (front, then back)
@@ -973,7 +848,7 @@ bool eval_window_stage(const Staged<T>& st, int s, int W, int L,
     }
     return ok;
   }
-  const bool ok = inside && ok_col;     // eval_pathline's blend
+  const bool ok = inside && ok_col;     // the pathline blend
   for (int c = 0; c < 3; ++c)
     hv[c] = ok ? a * hv_s[NS - 1][c] + (T(1) - a) * hv_s[0][c] : T(0);
   wv = ok ? a * wv_s[NS - 1] + (T(1) - a) * wv_s[0] : T(0);
@@ -1144,6 +1019,454 @@ int launch_window(WINDOW_KERNEL_PARAMS, void* stream) {
   return (int)cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// the full-column pathline step (K2)
+// ---------------------------------------------------------------------------
+//
+// K2 takes K4's form on the whole column.  A group of kPathGroup lanes of
+// one warp advances one particle.  Before stage 1 the group copies, for
+// each of the cell's nv vertex rows, xyz and ztop[0..L) of the front table
+// and ztop[0..L) of the back table into the particle's slot of shared
+// memory (cp.async, one element a lane): the values a stage reads L at a
+// time.  A stage's weights come from geometry_group, as K4's.  Per
+// snapshot, lane j then sums the profile at layers j, j+G, ... (each a
+// Wachspress sum over k in order with explicit fma, as K4's window sums)
+// into its registers, and the group clamps, searches and lerps that
+// distributed profile with shuffles and votes:
+// - the clamp (_clamp_profile(exact=True)): the sequential recurrence
+//   changes nothing unless some raw pair ascends, z[l] > z[l-1] (by
+//   induction the clamped z'[l-1] is then the raw z[l-1] >= z[l]).  The
+//   group tests every pair at once (the neighbour by __shfl_up_sync, then
+//   __any_sync) and runs the recurrence, a shuffle a layer, only when one
+//   ascends;
+// - the first-hit linear search: each lane tests its layers' intervals, one
+//   ballot a register, and the lowest set bit of the first non-empty ballot
+//   is the layer where the ascending loop stops;
+// - the lerp's z[layer-1] and z[layer] come from the lanes that hold them.
+// The 2 x kPicks picks at the layers found are independent sums, one a
+// lane, read straight from the tables' rows; shuffles bring them to every
+// lane, the blend and the RK move run in every lane, and lane 0 writes the
+// outputs.  Every rounding is K4's, so a window step that does not miss is
+// bit-equal to this one.
+//
+// The masked form (the window path's repair, launched after every K4 step
+// with under 0.02 % of the lanes flagged) is one warp per 32 particles:
+// the warp reads their flags with one load and a ballot, and its groups
+// step the flagged particles one after another, so a launch without a
+// flag costs n/32 warps.  The layer it writes for the start position is
+// stage 1's front layer: stage 1 is evaluated there.
+
+// Lanes a particle: the fastest of 4, 8, 16 and 32 on the H100 at the main
+// path's shape, f32 and f64 (PERF.md); at L = 60 a lane holds two layers.
+constexpr int kPathGroup = 32;
+// Table loads a pick lane issues before it sums them: the vertices' rows
+// are scattered, so one load after another would wait on each in turn (4
+// measured as fast as 8 with fewer registers).
+constexpr int kPickLoads = 4;
+// Shared memory a K2 block aims at.
+constexpr int kPathSmemTarget = 32 * 1024;
+// Blocks of kBlockThreads lanes an SM must hold, which caps the registers a
+// lane.  Occupancy, set by registers, is what a K2 stage waits on: the main
+// path's instance (L <= 64, unmasked) is capped at 64 registers at f32 and
+// 128 at f64, without spills, so that an SM holds 32 (f32) or 16 (f64)
+// warps (1.39 against 1.79 ms uncapped at f32 on the H100, PERF.md).  The
+// masked form (a few lanes a launch) and the generic width are not capped.
+template <typename T, int LT, bool MASKED>
+constexpr int path_min_blocks() {
+  return MASKED || LT > 64 ? 1 : (sizeof(T) == 8 ? 2 : 4);
+}
+
+// T values of one K2 slot: weights (K), front records xyz(3) + ztop(L),
+// back records ztop(L); odd, as slot_values.
+__host__ __device__ inline int column_slot_values(int K, int L) {
+  const int S = K + K * (3 + L) + K * L;
+  return S + (S % 2 == 0);
+}
+
+// One snapshot's clamped (or raw) profile at a stage, spread over the
+// group: lane j holds layers l = j + r*G in z[r], and z[l-1] in p[r]
+// (meaningless at layer 0) once neighbours() has run.  LT is the layer
+// ceiling (L <= LT).
+template <typename T, int G, int LT>
+struct Column {
+  static constexpr int R = (LT + G - 1) / G;
+  int L;
+  T z[R], p[R];
+  __device__ __forceinline__ void neighbours(unsigned gmask, int lane) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      if (r * G >= L) break;
+      const T up = __shfl_up_sync(gmask, z[r], 1, G);
+      const T last = __shfl_sync(gmask, z[r > 0 ? r - 1 : 0], G - 1, G);
+      p[r] = lane > 0 ? up : last;
+    }
+  }
+  // z[l] for a layer l that every lane of the group names.
+  __device__ __forceinline__ T at(int l, unsigned gmask) const {
+    const int r = l / G;
+    T v = z[0];
+#pragma unroll
+    for (int m = 1; m < R; ++m) v = m == r ? z[m] : v;
+    return __shfl_sync(gmask, v, l % G, G);
+  }
+  // The Wachspress profile sum_k w_k * rec[k*rs + l] at the lane's layers,
+  // k = 0..nv-1 in order with explicit fma (wachspress_sum's order), k
+  // outermost so that the lane's R sums advance together.
+  __device__ __forceinline__ void sum(const T* w, const T* rec, int rs,
+                                      int nv, int lane) {
+#pragma unroll
+    for (int r = 0; r < R; ++r) z[r] = T(0);
+    for (int k = 0; k < nv; ++k) {
+      const T wk = w[k];
+      const T* row = rec + k * rs + lane;
+#pragma unroll
+      for (int r = 0; r < R; ++r)
+        if (lane + r * G < L) z[r] = fma(wk, row[r * G], z[r]);
+    }
+  }
+};
+
+// _clamp_profile(exact=True) on the group's profile; leaves p set.
+template <typename T, int G, int LT>
+__device__ __forceinline__ void clamp_column(Column<T, G, LT>& col,
+                                             unsigned gmask, int lane) {
+  using C = Column<T, G, LT>;
+  const int L = col.L;
+  col.neighbours(gmask, lane);
+  bool ascends = false;
+#pragma unroll
+  for (int r = 0; r < C::R; ++r) {
+    const int l = lane + r * G;
+    if (r * G < L)
+      ascends = ascends || (l >= 1 && l < L && col.z[r] > col.p[r]);
+  }
+  if (!__any_sync(gmask, ascends)) return;
+  T p = col.at(0, gmask);                 // z'[l-1], every lane
+#pragma unroll
+  for (int r = 0; r < C::R; ++r) {
+    for (int src = r == 0 ? 1 : 0; src < G && r * G + src < L; ++src) {
+      const T cur = __shfl_sync(gmask, col.z[r], src, G);
+      const T z = cur > p ? p - ztop_clamp<T>() : cur;
+      if (lane == src) col.z[r] = z;
+      p = z;
+    }
+  }
+  col.neighbours(gmask, lane);
+}
+
+// layer_linear on the group's clamped profile (reference TBB kernel
+// :1182-1222): above the surface -> 1, below the bottom -> L-1, else the
+// first k in [1, L-1] whose interval holds the depth; ok is above | below
+// | found.
+template <typename T, int G, int LT>
+__device__ __forceinline__ int layer_linear_column(const Column<T, G, LT>& col,
+                                                   T d, unsigned gmask,
+                                                   int lane, bool& ok) {
+  const int L = col.L;
+  const bool above = d > col.at(0, gmask) + eps_layer<T>();
+  const bool below = d < col.at(L - 1, gmask) - eps_layer<T>();
+  const int base = (threadIdx.x & 31) & ~(G - 1);   // the group's lane 0
+  int first = -1;
+#pragma unroll
+  for (int r = 0; r < Column<T, G, LT>::R; ++r) {
+    if (r * G >= L) break;
+    const int l = lane + r * G;
+    const bool hit = l >= 1 && l < L && d <= col.p[r] + eps_layer<T>() &&
+                     d >= col.z[r] - eps_layer<T>();
+    const unsigned bits = (__ballot_sync(gmask, hit) & gmask) >> base;
+    if (first < 0 && bits != 0u) first = r * G + __ffs(bits) - 1;
+  }
+  ok = above || below || first >= 0;
+  return above ? 1 : (below ? L - 1 : (first >= 0 ? first : 1));
+}
+
+// lerp_t on the group's profile.
+template <typename T, int G, int LT>
+__device__ __forceinline__ T lerp_t_column(const Column<T, G, LT>& col,
+                                           int layer, T d, unsigned gmask,
+                                           bool& ok_denom) {
+  const T z_dn = col.at(layer, gmask), z_up = col.at(layer - 1, gmask);
+  T x = d < z_dn ? z_dn : d;
+  x = x > z_up ? z_up : x;
+  const T denom = z_up - z_dn;
+  ok_denom = fabs(denom) >= eps_zero<T>();
+  return (x - z_dn) / (ok_denom ? denom : T(1));
+}
+
+// Row offset of pick m (pick_offset's order) at the stage layer ``layer``,
+// or -1 for an attribute slot >= A.
+__device__ __forceinline__ int pick_column(int m, int layer, int L, int A) {
+  const bool up = m < 3 || m == 6 || (m >= 8 && m < 8 + A_MAX);
+  const int l = up ? layer - 1 : layer;
+  if (m < 6) return 3 + L + 3 * l + (m % 3);
+  if (m < 8) return 3 + 4 * L + l;
+  const int ai = (m - 8) % A_MAX;
+  return ai < A ? 4 + 5 * L + A * l + ai : -1;
+}
+
+template <typename T>
+struct PathlineArgs {
+  const T* pos;
+  const T* depth_neg;
+  const int32_t* nv;
+  const int32_t* vids;
+  const T* table_f;
+  const T* table_b;
+  int n, K, F, L, n_attrs;
+  T dt, a1, a2, a4;
+  int euler;
+  T* new_pos;
+  T* hvel;
+  T* wvel;
+  bool* ok;
+  T* attr;
+  const bool* only;
+  int32_t* layer;
+};
+
+// CalcVelocityAt(pos, cell, alpha) (pathline) by the particle's group: both
+// snapshots blended by alpha, failed lanes carrying zeros; layer is the
+// front snapshot's.
+template <typename T, int LT>
+__device__ __forceinline__
+bool eval_column_stage(const PathlineArgs<T>& a, const Staged<T>& st,
+                       const int32_t* vid, const T* bk, const T* p, T alpha,
+                       unsigned gmask, int lane, T* hv, T& wv, T* at,
+                       int& layer) {
+  constexpr int G = kPathGroup;
+  const bool inside = geometry_group<G>(st, bk, p, gmask, lane);
+  const int nv = st.nv;
+  const T d = st.d;
+  int lay[2];
+  T t[2];
+  bool ok_col = true;
+#pragma unroll
+  for (int sn = 0; sn < 2; ++sn) {
+    Column<T, G, LT> col;
+    col.L = a.L;
+    col.sum(st.w, sn == 0 ? st.f + 3 : st.b, sn == 0 ? st.rsf : st.rsb, nv,
+            lane);
+    clamp_column(col, gmask, lane);
+    bool ok_layer, ok_denom;
+    lay[sn] = layer_linear_column(col, d, gmask, lane, ok_layer);
+    t[sn] = lerp_t_column(col, lay[sn], d, gmask, ok_denom);
+    ok_col = ok_col && ok_layer && ok_denom;
+  }
+  layer = lay[0];
+
+  // the picks: job j is pick j % kPicks of snapshot j / kPicks, summed
+  // over k in order from kPickLoads table loads at a time
+  constexpr int NB = 2 * kPicks;
+  constexpr int RB = (NB + G - 1) / G;
+  const T* src[RB];
+  bool has[RB];
+  T acc[RB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    const int j = lane + r * G;
+    const bool front = j < kPicks;
+    const int off = j < NB ? pick_column(j % kPicks, front ? lay[0] : lay[1],
+                                         a.L, st.A)
+                           : -1;
+    has[r] = off >= 0;
+    src[r] = (front ? a.table_f : a.table_b) + (off >= 0 ? off : 0);
+    acc[r] = T(0);
+  }
+  for (int k0 = 0; k0 < nv; k0 += kPickLoads) {
+    T v[kPickLoads][RB];
+#pragma unroll
+    for (int u = 0; u < kPickLoads; ++u) {
+      const bool real = k0 + u < nv;
+      const int64_t row = real ? (int64_t)vid[k0 + u] * a.F : 0;
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+        v[u][r] = real && has[r] ? src[r][row] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < kPickLoads; ++u)
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+        if (k0 + u < nv && has[r]) acc[r] = fma(st.w[k0 + u], v[u][r], acc[r]);
+  }
+  T hv_s[2][3], wv_s[2], at_s[2][A_MAX];
+#pragma unroll
+  for (int sn = 0; sn < 2; ++sn) {
+    T v[kPicks];
+#pragma unroll
+    for (int m = 0; m < kPicks; ++m) {
+      const int j = sn * kPicks + m;
+      v[m] = __shfl_sync(gmask, acc[j / G], j % G, G);
+    }
+    const T ts = t[sn];
+#pragma unroll
+    for (int c = 0; c < 3; ++c)
+      hv_s[sn][c] = ts * v[c] + (T(1) - ts) * v[3 + c];
+    wv_s[sn] = ts * v[6] + (T(1) - ts) * v[7];
+#pragma unroll
+    for (int ai = 0; ai < A_MAX; ++ai)
+      at_s[sn][ai] = ts * v[8 + ai] + (T(1) - ts) * v[8 + A_MAX + ai];
+  }
+  const bool ok = inside && ok_col;
+  for (int c = 0; c < 3; ++c)
+    hv[c] = ok ? alpha * hv_s[1][c] + (T(1) - alpha) * hv_s[0][c] : T(0);
+  wv = ok ? alpha * wv_s[1] + (T(1) - alpha) * wv_s[0] : T(0);
+  for (int ai = 0; ai < st.A; ++ai)
+    at[ai] = ok ? alpha * at_s[1][ai] + (T(1) - alpha) * at_s[0][ai] : T(0);
+  return ok;
+}
+
+// The step of particle i by its group, in the group's slot.
+template <typename T, int LT>
+__device__ void pathline_group_step(const PathlineArgs<T>& a, int i, T* slot,
+                                    unsigned gmask, int lane) {
+  constexpr int G = kPathGroup;
+  const int K = a.K, L = a.L;
+  const int nvr = a.nv[i];
+  const int nv = nvr < K ? nvr : K;
+  const int32_t* vid = a.vids + (int64_t)i * K;
+  T* rec_f = slot + K;
+  T* rec_b = rec_f + K * (3 + L);
+  Staged<T> st;
+  st.w = slot;
+  st.f = rec_f;
+  st.b = rec_b;
+  st.rsf = 3 + L;
+  st.rsb = L;
+  st.nv = nv;
+  st.A = a.n_attrs;
+  st.d = a.depth_neg[i];
+  __syncwarp(gmask);                      // the slot's last step is done
+  for (int k = 0; k < nv; ++k) {
+    const int64_t row = (int64_t)vid[k] * a.F;
+    for (int e = lane; e < 3 + L; e += G)
+      cp_async(rec_f + k * (3 + L) + e, a.table_f + row + e);
+    for (int e = lane; e < L; e += G)
+      cp_async(rec_b + k * L + e, a.table_b + row + 3 + e);
+  }
+  cp_async_wait_all();
+  __syncwarp(gmask);
+
+  T bk[(K_MAX + G - 1) / G];              // B_k, fixed for the step
+#pragma unroll
+  for (int q = 0; q < (K_MAX + G - 1) / G; ++q) {
+    const int k = lane + q * G;
+    bk[q] = T(1);
+    if (k < nv)
+      bk[q] = tri_area(st.f + (k == 0 ? nv - 1 : k - 1) * st.rsf,
+                       st.f + k * st.rsf,
+                       st.f + (k + 1 == nv ? 0 : k + 1) * st.rsf);
+  }
+  const T p0[3] = {a.pos[3 * (int64_t)i], a.pos[3 * (int64_t)i + 1],
+                   a.pos[3 * (int64_t)i + 2]};
+  int layer = 1;
+  auto eval = [&](const T* p, int stage, T* hv, T& wv, T* at) {
+    int lay;
+    const T alpha = stage == 0 ? a.a1 : (stage == 3 ? a.a4 : a.a2);
+    const bool ok = eval_column_stage<T, LT>(a, st, vid, bk, p, alpha, gmask,
+                                             lane, hv, wv, at, lay);
+    if (stage == 0) layer = lay;
+    return ok;
+  };
+  T hv[3], wv, np_[3], at[A_MAX];
+  const bool ok = rk_step(p0, a.dt, a.euler, a.n_attrs, eval, np_, hv, wv,
+                          at);
+  if (lane != 0) return;
+  for (int c = 0; c < 3; ++c) {
+    a.new_pos[3 * (int64_t)i + c] = np_[c];
+    a.hvel[3 * (int64_t)i + c] = hv[c];
+  }
+  a.wvel[i] = wv;
+  a.ok[i] = ok;
+  if (a.attr != nullptr) {                // slots >= n_attrs are zero
+    a.attr[3 * (int64_t)i] = a.n_attrs > 0 ? at[0] : T(0);
+    a.attr[3 * (int64_t)i + 1] = a.n_attrs > 1 ? at[1] : T(0);
+    a.attr[3 * (int64_t)i + 2] = T(0);
+  }
+  if (a.only != nullptr)
+    a.layer[i] = layer < 1 ? 1 : (layer > L - 1 ? L - 1 : layer);
+}
+
+// Plain: group g of block b steps particle b*P + g.  Masked (a.only set):
+// warp w of the grid scans particles 32w .. 32w+31, and in each round its
+// 32/G groups take the next 32/G flagged ones, one each.
+template <typename T, int LT, bool MASKED>
+__global__ void __launch_bounds__(kBlockThreads,
+                                  path_min_blocks<T, LT, MASKED>())
+pathline_step_kernel(PathlineArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int G = kPathGroup;
+  const int g = threadIdx.x / G, lane = threadIdx.x % G;
+  T* slot = reinterpret_cast<T*>(smem_raw) +
+            (size_t)g * column_slot_values(a.K, a.L);
+  const unsigned gmask =
+      G == 32 ? 0xffffffffu
+              : ((1u << (G % 32)) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  if constexpr (!MASKED) {
+    const int i = blockIdx.x * (blockDim.x / G) + g;
+    if (i < a.n) pathline_group_step<T, LT>(a, i, slot, gmask, lane);
+    return;
+  }
+  const int base = (blockIdx.x * blockDim.x + threadIdx.x) & ~31;
+  const int j = base + (threadIdx.x & 31);
+  unsigned flags = __ballot_sync(0xffffffffu, j < a.n && a.only[j]);
+  const int sub = (threadIdx.x & 31) / G;
+  while (flags != 0u) {
+    unsigned mine = flags;
+    for (int q = 0; q < 32 / G; ++q) {
+      if (q < sub) mine &= mine - 1u;     // the group's flag of the round
+      flags &= flags - 1u;                // the round's flags are taken
+    }
+    if (mine != 0u)
+      pathline_group_step<T, LT>(a, base + __ffs(mine) - 1, slot, gmask,
+                                 lane);
+  }
+}
+
+// Bytes of a K2 slot and particles per block: as many whole warps as fit
+// kPathSmemTarget, at least one, at most kBlockThreads lanes.
+inline void pathline_layout(int K, int L, int size, int* slot, int* P) {
+  constexpr int G = kPathGroup;
+  *slot = column_slot_values(K, L) * size;
+  const int warps = kPathSmemTarget / (*slot * (32 / G));
+  *P = (32 / G) * (warps < 1 ? 1 : (warps > kBlockThreads / 32
+                                    ? kBlockThreads / 32 : warps));
+}
+
+template <typename T, int LT>
+int launch_pathline_lt(const PathlineArgs<T>& a, int P, int smem,
+                       void* stream) {
+  constexpr int G = kPathGroup;
+  const bool masked = a.only != nullptr;
+  auto kernel = masked ? pathline_step_kernel<T, LT, true>
+                       : pathline_step_kernel<T, LT, false>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  // a block holds P groups; masked, its P * G lanes scan as many particles
+  const int per_block = masked ? P * G : P;
+  if (a.n > 0)
+    kernel<<<(a.n + per_block - 1) / per_block, P * G, smem,
+             (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// K2 for L <= 64 (the main path's 60 layers: fewer registers a lane) or
+// any L <= L_MAX.
+template <typename T>
+int launch_pathline(const PathlineArgs<T>& a, void* stream) {
+  if (a.n_attrs < 0 || a.n_attrs > A_MAX || a.K > K_MAX || a.L > L_MAX ||
+      a.L < 2)
+    return (int)cudaErrorInvalidValue;
+  int slot, P;
+  pathline_layout(a.K, a.L, (int)sizeof(T), &slot, &P);
+  const int smem = P * slot;
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  return a.L <= 64 ? launch_pathline_lt<T, 64>(a, P, smem, stream)
+                   : launch_pathline_lt<T, L_MAX>(a, P, smem, stream);
+}
+
 constexpr int kThreads = 128;
 
 inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
@@ -1159,21 +1482,6 @@ int launch_streamline(const T* pos, const T* depth_neg, const int32_t* nv,
                                 (cudaStream_t)stream>>>(
         pos, depth_neg, nv, vids, table, n, K, F, L, dt, euler, new_pos, hvel,
         wvel, ok, only, layer);
-  return (int)cudaGetLastError();
-}
-
-template <typename T>
-int launch_pathline(const T* pos, const T* depth_neg, const int32_t* nv,
-                    const int32_t* vids, const T* table_f, const T* table_b,
-                    int n, int K, int F, int L, int n_attrs, T dt, T a1, T a2,
-                    T a4, int euler, T* new_pos, T* hvel, T* wvel, bool* ok,
-                    T* attr, const bool* only, int32_t* layer, void* stream) {
-  if (n_attrs < 0 || n_attrs > A_MAX) return (int)cudaErrorInvalidValue;
-  if (n > 0)
-    pathline_step_kernel<T><<<blocks_for(n), kThreads, 0,
-                              (cudaStream_t)stream>>>(
-        pos, depth_neg, nv, vids, table_f, table_b, n, K, F, L, n_attrs, dt,
-        a1, a2, a4, euler, new_pos, hvel, wvel, ok, attr, only, layer);
   return (int)cudaGetLastError();
 }
 
@@ -1204,6 +1512,11 @@ int stage_kernel_k_max() { return K_MAX; }
 int stage_kernel_l_max() { return L_MAX; }
 int stage_kernel_a_max() { return A_MAX; }
 int stage_kernel_w_max() { return W_MAX; }
+// K2's shared memory a particle (bytes) and particles a block.
+void pathline_step_layout(int K, int L, int itemsize, int* slot_bytes,
+                          int* particles) {
+  pathline_layout(K, L, itemsize, slot_bytes, particles);
+}
 #endif
 
 // K1 and K2: ``only`` and ``layer`` are null for a plain step, and the miss
@@ -1226,10 +1539,10 @@ int stage_kernel_w_max() { return W_MAX; }
       int F, int L, int n_attrs, T dt, T a1, T a2, T a4, int euler,            \
       T* new_pos, T* hvel, T* wvel, bool* ok, T* attr, const bool* only,       \
       int32_t* layer, void* stream) {                                          \
-    return launch_pathline<T>(pos, depth_neg, nv, vids, table_f, table_b, n,   \
-                              K, F, L, n_attrs, dt, a1, a2, a4, euler,         \
-                              new_pos, hvel, wvel, ok, attr, only, layer,      \
-                              stream);                                         \
+    return launch_pathline<T>(                                                 \
+        {pos, depth_neg, nv, vids, table_f, table_b, n, K, F, L, n_attrs, dt,  \
+         a1, a2, a4, euler, new_pos, hvel, wvel, ok, attr, only, layer},       \
+        stream);                                                               \
   }
 
 #define WINDOW_STREAMLINE_ENTRY(T, tag)                                        \

@@ -21,6 +21,7 @@ import torch
 
 import mops_tpu_torch as mtt
 from mops_tpu_torch import advect
+from mops_tpu_torch.interp import wachspress_weights
 from mops_tpu_torch.kernels import row_gather as rg
 from mops_tpu_torch.kernels import stage_kernel as sk
 from mops_tpu_torch.kernels.stage_kernel import (fused_pathline_step,
@@ -193,6 +194,110 @@ def test_pathline_kernel_ceilings_raise(card, card_back):
                             n_attrs=3)
 
 
+# --- K2 at wide columns, with non-monotone profiles, and masked ------------
+
+
+def _wide_inputs(kind, L, dev):
+    """Pathline inputs (A = 2) at L layers on the Voronoi mesh or on the
+    gradient mesh (K = 11), with the ztop columns of every sixth vertex
+    disturbed, so that the raw profiles of some lanes ascend somewhere (the
+    grouped clamp's slow path)."""
+    rng = np.random.default_rng(L)
+    mesh = mtt.synth.build_voronoi_mesh(500, n_layers=L) if kind == "voronoi" \
+        else mtt.synth.build_gradient_mesh(2000, n_layers=L)
+    raws = [mtt.synth.solid_body_fields(mesh, n_layers=L, w_scale=1e-4,
+                                        bathymetry_amp=0.5, omega=omega)
+            for omega in (1e-5, 1.2e-5)]
+    mesh = mesh.to(dev, torch.float64)
+    sols = [mtt.preprocess(mesh, raw, device=dev) for raw in raws]
+    n = 256
+    v = rng.normal(size=(n, 3))
+    seeds = v / np.linalg.norm(v, axis=1, keepdims=True) * mtt.EARTH_RADIUS
+    cells = mtt.CellSearch(mesh).query(seeds)
+    coc = mesh.cells_on_cell.cpu().numpy()
+    cells[:16] = coc[cells[:16], 0]                      # out of cell
+    seeds[40:44] = np.nan                                # dead lanes
+    dn = -np.linspace(10.0, 4500.0, n)                   # down to the bottom
+    dn[32:40] = 5.0                                      # above the surface
+    vids, nv, _ = advect._gather_cell_vertices(
+        mesh, torch.as_tensor(cells, device=dev))
+    tf, tb = (pack_vertex_table(mesh.vertex_xyz, s.vertex_ztop,
+                                s.vertex_velocity, s.vertex_vert_velocity,
+                                advect.stacked_vertex_attrs(s)) for s in sols)
+    bad = torch.as_tensor(rng.choice(len(tf), len(tf) // 6, replace=False),
+                          device=dev)
+    noise = torch.as_tensor(rng.uniform(-150.0, 150.0, (len(bad), L)),
+                            device=dev)
+    tf[bad, 3:3 + L] += noise
+    tb[bad, 3:3 + L] -= noise
+    pos = torch.as_tensor(seeds, device=dev)
+    rows = tf[vids.long()]
+    w = wachspress_weights(pos, rows[..., :3], nv)
+    z = torch.einsum("nk,nkl->nl", w, rows[..., 3:3 + L])
+    assert bool((z[:, 1:] > z[:, :-1]).any(dim=1).any())  # some ascend
+    return pos, torch.as_tensor(dn, device=dev), nv, vids, tf, tb, L
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,L", [("voronoi", 80), ("voronoi", sk.L_MAX),
+                                    ("gradient", sk.L_MAX)])
+def test_pathline_kernel_wide_columns_match_plain_f64(card, kind, L):
+    """K2 where L is not a multiple of its lanes a particle, on K = 11
+    cells, with lanes whose raw profile is not monotone."""
+    _, _, dev = card
+    args = _wide_inputs(kind, L, dev)
+    if kind == "gradient":
+        assert args[3].shape[1] == 11
+    for euler in (False, True):
+        got = fused_pathline_step(*args, DT, (0.3, 0.305, 0.31), euler=euler,
+                                  n_attrs=2)
+        torch.cuda.synchronize()
+        want = fused_pathline_step_plain(*args, DT, (0.3, 0.305, 0.31),
+                                         euler=euler, n_attrs=2)
+        for a, b, tol in zip(got[:3], want[:3], (1e-6, 1e-10, 1e-12)):
+            torch.testing.assert_close(a, b, rtol=0, atol=tol, equal_nan=True)
+        assert torch.equal(got[3], want[3])
+        torch.testing.assert_close(got[4], want[4], rtol=0, atol=1e-8)
+        assert bool(got[3].any()) and not bool(got[3][:16].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flagged", ["none", "some", "all"])
+def test_pathline_kernel_masked_form_f64(card, flagged):
+    """K2's masked form (the window path's repair launch): a flagged lane's
+    outputs are the unmasked step's and its layer the front column's at the
+    start position; an unflagged lane's outputs stay as they were."""
+    _, _, dev = card
+    pos, dn, nv, vids, tf, tb, L = _wide_inputs("voronoi", 80, dev)
+    n, K = vids.shape
+    alphas = (0.3, 0.305, 0.31)
+    full = fused_pathline_step(pos, dn, nv, vids, tf, tb, L, DT, alphas,
+                               n_attrs=2)
+    only = {"none": torch.zeros(n, dtype=torch.bool, device=dev),
+            "some": torch.arange(n, device=dev) % 7 == 3,
+            "all": torch.ones(n, dtype=torch.bool, device=dev)}[flagged]
+    out = [torch.full_like(pos, 7.0), torch.full_like(pos, 7.0),
+           torch.full_like(dn, 7.0), torch.zeros_like(only),
+           torch.full_like(pos, 7.0),
+           torch.full((n,), -5, dtype=torch.int32, device=dev)]
+    err = sk._library().pathline_step_f64(
+        pos.data_ptr(), dn.data_ptr(), nv.data_ptr(), vids.data_ptr(),
+        tf.data_ptr(), tb.data_ptr(), n, K, tf.shape[1], L, 2, DT, *alphas, 0,
+        *(t.data_ptr() for t in out[:5]), only.data_ptr(), out[5].data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    for a, b in zip(out[:5], full[:5]):
+        torch.testing.assert_close(a[only], b[only], rtol=0, atol=0,
+                                   equal_nan=True)
+    assert bool((out[0][~only] == 7.0).all()) and not bool(out[3][~only].any())
+    assert bool((out[4][~only] == 7.0).all()) and bool((out[5][~only] == -5).all())
+    rows = tf[vids.long()]
+    layer = torch.clamp(start_layer(rows[..., 3:3 + L], pos, dn, nv,
+                                    rows[..., :3], True), 1, L - 1)
+    assert torch.equal(out[5][only], layer[only].to(torch.int32))
+
+
 # --- the layer-window kernels (K3, K4) ---------------------------------------
 
 W = 4
@@ -308,19 +413,24 @@ def test_window_kernel_ceilings_raise(card):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
-@pytest.mark.parametrize("F", [3072, 320], ids=["F>=1024", "F<1024"])
-def test_row_gather_matches_plain(card, dtype, F):
-    rng = np.random.default_rng(7)
+@pytest.mark.parametrize("row_bytes", [16, 1216, 1696, 12288])
+def test_row_gather_matches_plain(card, dtype, row_bytes):
+    """Rows of 16 B, of the slice's streamline (1,216 B) and pathline front
+    (1,696 B) tables and of prof_dma.py's (12,288 B), with repeated ids."""
+    rng = np.random.default_rng(row_bytes)
+    F = row_bytes // torch.empty((), dtype=dtype).element_size()
     table = torch.as_tensor(rng.normal(size=(1000, F)), dtype=dtype,
                             device="cuda")
-    ids = torch.as_tensor(rng.integers(0, 1000, size=(64 * 16,)),
+    ids = torch.as_tensor(rng.integers(0, 1000, size=(4 * rg.BLOCK_ROWS,)),
                           dtype=torch.int32, device="cuda")
+    ids[5:40] = ids[4]
+    ids[700:900] = ids[600:800].clone()
     before = rg.row_gather_probe.launches
-    head, sums = rg.row_gather_probe(table, ids, 16)
+    head, sums = rg.row_gather_probe(table, ids)
     torch.cuda.synchronize()
     assert rg.row_gather_probe.launches == before + 1
-    want_head, want_sums = rg.row_gather_plain(table, ids, 16)
-    scale = rg.row_gather_plain(table.abs(), ids, 16)[1]
+    want_head, want_sums = rg.row_gather_plain(table, ids)
+    scale = rg.row_gather_plain(table.abs(), ids)[1]
     assert torch.equal(head, want_head)
     assert bool(((sums - want_sums).abs() <= 1e-12 * scale).all())
 

@@ -1,5 +1,6 @@
 """The port's pathline against mops_tpu at float64: the linear layer search,
-the attribute stack and packed-table layout, the fused pathline step's
+the exact ztop clamp (also at float32), the attribute stack and
+packed-table layout, the fused pathline step's
 plain version against the Pallas kernel it replaces (interpret mode), and
 the whole pathline run against ``mops_tpu.run_advection(..., back=...,
 use_pallas=False)`` under x64.
@@ -27,7 +28,7 @@ from mops_tpu_torch.from_jax import mesh_from_jax, solution_from_jax
 from mops_tpu_torch.kernels.stage_kernel import (fused_pathline_step,
                                                  fused_pathline_step_plain,
                                                  pack_vertex_table)
-from mops_tpu_torch.step import _layer_search_linear
+from mops_tpu_torch.step import _clamp_profile, _layer_search_linear
 
 torch.set_num_threads(1)
 
@@ -60,6 +61,45 @@ def test_layer_search_linear_matches_jax(seed):
     np.testing.assert_array_equal(layer.numpy(), np.asarray(ref_layer))
     np.testing.assert_array_equal(ok.numpy(), np.asarray(ref_ok))
     assert ok.all()          # this profile family always holds the depth
+
+
+def _clamp_case(case, dtype, L):
+    """Raw ztop profiles of 300 lanes.  "raw": a third of them disturbed so
+    that they ascend somewhere (Wachspress weights outside the cell can be
+    negative); "monotone": none ascends; "rounds back": f32 profiles near
+    -100 m, where z'[l-1] - 1e-9 rounds back to z'[l-1], so the clamp leaves
+    flat steps."""
+    rng = np.random.default_rng(L)
+    z = -np.cumsum(rng.uniform(0.0, 80.0, (300, L)), axis=1)
+    if case == "raw":
+        z[::3] += rng.uniform(-120.0, 120.0, (100, L))
+    elif case == "rounds back":
+        z = -100.0 + rng.uniform(-1e-3, 1e-3, (300, L))
+    return z.astype(dtype)
+
+
+@pytest.mark.parametrize("case,dtype,L", [
+    ("raw", "float32", 9), ("raw", "float32", 60), ("raw", "float32", 80),
+    ("raw", "float64", 9), ("raw", "float64", 60), ("raw", "float64", 80),
+    ("rounds back", "float32", 60), ("monotone", "float32", 60),
+    ("monotone", "float64", 60)])
+def test_clamp_profile_matches_jax(case, dtype, L):
+    """The exact (sequential) clamp bit for bit against mops_tpu's, at the
+    widths K2's grouped clamp meets; a profile with no ascending pair comes
+    back unchanged (the premise of K2's fast path)."""
+    z = _clamp_case(case, dtype, L)
+    port = _clamp_profile(torch.from_numpy(z), True).numpy()
+    ref = np.asarray(jadvect._clamp_profile(jnp.asarray(z), True))
+    assert port.dtype == ref.dtype == z.dtype
+    np.testing.assert_array_equal(port, ref)
+    ascends = (z[:, 1:] > z[:, :-1]).any(axis=1)
+    if case == "monotone":
+        assert not ascends.any()
+        np.testing.assert_array_equal(port, z)
+    else:
+        assert ascends.any() and (np.diff(port, axis=1) <= 0).all()
+    if case == "rounds back":
+        assert (np.diff(port, axis=1) == 0).any()
 
 
 def test_layer_search_linear_not_found_fails():
