@@ -11,16 +11,16 @@ success):
    mops_tpu_torch/_build/, both started together), and ptxas's registers
    and spills of every kernel.
 1. kernel checks at the slice's shape (K = the mesh's maxEdges, L = 60, all
-   particles; K2's shared memory a particle and particles a block at that
-   shape), each kernel against its plain PyTorch version on the same
+   particles; K1's and K2's shared memory a particle and particles a block
+   at that shape), each kernel against its plain PyTorch version on the same
    inputs, float32 and float64, RK4 and Euler, with out-of-cell,
    below-bottom, above-surface and dead lanes; per-step times of both:
    K1 (streamline); K2 (pathline: two snapshots, 0 and 2 attributes, stage
    alphas mid-run and near 1, where the clip engages); K3 and K4 (their
    layer-window forms, W = 8, windows placed around each lane's layer and
    moved off it on some lanes so that they miss; each call is the window
-   kernel and K1's (K2's) masked repair of the miss lanes; K2, K3 and K4
-   are timed in their Euler form too, to part a stage's cost from the
+   kernel and K1's (K2's) masked repair of the miss lanes; every step
+   kernel is timed in its Euler form too, to part a stage's cost from the
    rest).
 1c. the row-gather probe K5: its main path, ``python -m
    mops_tpu_torch.prof_dma`` at prof_dma.py's shape, driven with the counts
@@ -420,13 +420,21 @@ def main():
                               if label.split()[0] == kname}
         if not rows[key]["ptxas"]:
             fail(f"no ptxas report for {kname}")
-    rows["k2"]["layout"] = {}
-    for real, tag in ((f32, "f32"), (f64, "f64")):
-        slot, per_block = sk.pathline_layout(K, L, real)
-        rows["k2"]["layout"][tag] = {"smem_per_particle": slot,
-                                     "particles_per_block": per_block}
-        log(f"  K2 {tag} at K={K}, L={L}: {slot} B of shared memory a "
-            f"particle, {per_block} particles a block")
+    # K1's and K2's main-path instances (plain, L <= 64) hold their
+    # register caps without spilling
+    spilled = [label for key in ("k1", "k2")
+               for label, rep in rows[key]["ptxas"].items()
+               if label.endswith(" 64 0") and rep["spill_stores"]]
+    if spilled:
+        fail(f"ptxas spill stores in {spilled}")
+    for key, entry in (("k1", "streamline"), ("k2", "pathline")):
+        rows[key]["layout"] = {}
+        for real, tag in ((f32, "f32"), (f64, "f64")):
+            slot, per_block = sk.layout(entry, K, L, real)
+            rows[key]["layout"][tag] = {"smem_per_particle": slot,
+                                        "particles_per_block": per_block}
+            log(f"  {key.upper()} {tag} at K={K}, L={L}: {slot} B of shared "
+                f"memory a particle, {per_block} particles a block")
 
     def lane_inputs(real):
         mesh = meshes[real]
@@ -461,8 +469,8 @@ def main():
         """Hold ``call`` against ``plain``; on the timed case, time both per
         step (or the pair ``timed_calls``: the window kernels are timed at
         the main path's window starts); with ``timed_case="euler"`` time the
-        kernel alone (K2-K4's one-stage form: RK4's time less Euler's is
-        three stages' work)."""
+        kernel alone (its one-stage form: RK4's time less Euler's is three
+        stages' work)."""
         got = call()
         sync()
         want = plain()
@@ -515,7 +523,7 @@ def main():
                                                    120.0, euler=euler),
                   lambda: sk.fused_streamline_step_plain(
                       pos, dn, nv, vids, tab, L, 120.0, euler=euler),
-                  120.0, timed_case=not euler, real=real)
+                  120.0, timed_case="euler" if euler else True, real=real)
             check("k3", name,
                   lambda: sk.fused_window_streamline_step(
                       pos, dn, nv, vids, s, tab, L, WINDOW, 120.0,
@@ -869,9 +877,8 @@ def main():
                 "top": [[nm[:90], ms] for nm, ms in top[:8]]}
             if windowed:
                 profile_rows[f"{tag}{label}"]["repair_ms"] = r_ms
-                if pathline:
-                    rows["k2"].setdefault("repair_ms_per_step", {})[
-                        "f32" if real == f32 else "f64"] = r_ms / PROFILE_STEPS
+                rows["k2" if pathline else "k1"].setdefault(
+                    "repair_ms_per_step", {})[tag] = r_ms / PROFILE_STEPS
 
     # ---- the kernels' bounds at the main paths' start inputs -------------
     bounds = {}

@@ -22,10 +22,10 @@
 // weight set, then an independent profile, first-hit linear layer search
 // and lerp in each snapshot, blended as a*back + (1-a)*front with the stage
 // alphas (a1, a2, a2, a4), no per-snapshot |v| guard, and up to two named
-// attributes lerped and blended like the velocity.  All four kernels share
-// the geometry and RK device functions below; K2, K3 and K4 share the
-// grouped form (lanes a particle, the step's values staged once in shared
-// memory).
+// attributes lerped and blended like the velocity.  All four kernels take
+// one grouped form (a group of lanes of one warp a particle, the step's
+// values staged once in shared memory) and share its geometry and RK device
+// functions.
 //
 // K3 and K4 read only W layers [s, s+W) of each column per stage, s being a
 // per-particle start placed around the layer of the previous step: the
@@ -46,8 +46,8 @@
 // Input layout.  The TPU kernels take columns pre-gathered by XLA into a
 // (K, F, N) lanes-minor block, and K3/K4 a (W, K*C, N) window slice gathered
 // from a (cell, window start) table that exists because a TPU gather pays
-// per descriptor.  Here each thread reads its own K vertex rows straight
-// from the packed (nV, F) tables by vertex id, so neither materialisation
+// per descriptor.  Here each group reads its particle's K vertex rows
+// straight from the packed (nV, F) tables by vertex id, so neither materialisation
 // exists, and a window is a run of W values inside each row's blocks.  Row
 // layout (pack_vertex_table):
 //   [xyz(3) | ztop(L) | vel(3L, layer-major) | wvel(L+1) | attrs(A*L)],
@@ -68,24 +68,30 @@
 // attribute, about K*(L+8+2A) values, and the four RK stages re-read the
 // same rows, which stay in L1/L2.  K3/K4 replace the K*L ztop values by K*W
 // plus the two column ends, and the L-long profile loop by a W-long one.
-// K1 is one thread per particle, each profile walking each row contiguously
-// (see z_profile), rows read with scalar loads, the profile in thread-local
-// memory.  K3/K4 stage every value of the step once, before stage 1, in
-// shared memory with coalesced asynchronous copies, and run the stages out
-// of shared memory and registers, a group of lanes a particle (see "the
-// layer window" below).  K2 stages the same way the values that its stages
-// read L at a time, the ztop columns, and spreads each profile over the
-// group's lanes (see "the full-column pathline step" below).
+// K3/K4 stage every value of the step once, before stage 1, in shared
+// memory with coalesced asynchronous copies, and run the stages out of
+// shared memory and registers, a group of lanes a particle (see "the layer
+// window" below).  K1/K2 stage the same way the values that their stages
+// read L at a time, xyz and the ztop columns, spread each profile over the
+// group's lanes and read the picks from the tables (see "the full-column
+// steps" below).  Measured on the H100, none of the four is bound by its
+// bytes: a stage waits on the latency of its chain of sums, shuffles and
+// comparisons, so the designs trade lanes a particle against occupancy.
 //
 // Numerics: IEEE division and square root are required.  Do not build with
 // --use_fast_math or -ffast-math-style flags: the containment test relies on
 // isfinite(p); Euler divides by |pos x hv| with no guard and the reference
 // relies on the resulting NaN for its downstream cleanup; Wachspress divides
-// by triangle areas that can be zero.  FMA contraction is allowed; it moves
-// f64 results by about an ulp against the plain PyTorch version.
+// by triangle areas that can be zero.  Implicit FMA contraction is off
+// (-fmad=false, see "the layer window" below); the sums call fma()
+// explicitly, which moves f64 results by about an ulp against the plain
+// PyTorch version.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
+#include <vector>
 
 namespace {
 
@@ -135,182 +141,6 @@ __device__ inline void rotate(const T* p, const T* u, T theta, T* out) {
   out[2] = (u[2] * u[0] * omc - u[1] * st) * p[0] + (u[2] * u[1] * omc + u[0] * st) * p[1] + (ct + u[2] * u[2] * omc) * p[2];
 }
 
-// The state one particle carries through its step (K1).
-template <typename T>
-struct Particle {
-  int L;
-  int nv;                 // real vertices of the frozen cell
-  const T* row[K_MAX];    // this cell's vertex rows
-  T vp[K_MAX][3];         // vertex positions
-  T depth_neg;
-  T z[L_MAX];             // ztop profile at the current stage position
-};
-
-// ---------------------------------------------------------------------------
-// geometry
-// ---------------------------------------------------------------------------
-
-// Spherical point-in-polygon (inside iff cross(A_k, B_k) . p >= 0 on every
-// edge; a non-finite p is outside) and the Wachspress weights
-// w_k = B_k / (A_k * A_{k+1}), normalised.  Returns inside.
-// The edge test is evaluated as cross(A_k - p, B_k - p) . p, the same
-// determinant (subtracting p from two of its columns leaves it unchanged)
-// without the cancellation of cross(A_k, B_k): at float32, products of
-// 6.4e6-m coordinates misplace the edge plane by tens of metres, so a
-// particle that stops that close to an edge fails the test in the cell that
-// relocation (nearest centre) gives it, fails every stage at its start
-// position and, under FailMode.ZERO, never moves again.
-template <typename T>
-__device__ bool geometry(const T (*vp)[3], int nv, const T* p, T* w) {
-  bool inside = isfinite(p[0]) && isfinite(p[1]) && isfinite(p[2]);
-  for (int k = 0; k < nv; ++k) {
-    const T* b = vp[(k + 1) % nv];
-    const T a_p[3] = {vp[k][0] - p[0], vp[k][1] - p[1], vp[k][2] - p[2]};
-    const T b_p[3] = {b[0] - p[0], b[1] - p[1], b[2] - p[2]};
-    T c[3];
-    cross3(a_p, b_p, c);
-    inside = inside && (dot3(c, p) >= T(0));
-  }
-  T wsum = T(0);
-  for (int k = 0; k < nv; ++k) {
-    const T* prv = vp[k == 0 ? nv - 1 : k - 1];
-    const T* nxt = vp[(k + 1) % nv];
-    T a_i = tri_area(prv, vp[k], p);
-    T a_n = tri_area(vp[k], nxt, p);
-    T b_k = tri_area(prv, vp[k], nxt);
-    w[k] = b_k / (a_i * a_n);
-    wsum = wsum + w[k];
-  }
-  T inv = T(1) / wsum;
-  for (int k = 0; k < nv; ++k) w[k] = w[k] * inv;
-  return inside;
-}
-
-// ---------------------------------------------------------------------------
-// column machinery (one snapshot's rows)
-// ---------------------------------------------------------------------------
-
-// The helpers below take the particle's scalars (nv, L, depth) as values,
-// loaded once per stage evaluation: read through the Particle, they would
-// be reloaded from its local-memory copy after every store to the profile.
-
-// ztop profile + sequential monotonic clamp (reference :861-867) into z.
-// Each thread streams one vertex row at a time (k outer): the row's cache
-// lines are used up before the next row is touched.  With l outer a thread
-// holds K rows' lines at once, and the ~900 resident threads of an SM evict
-// them before reuse.  Both orders sum over k in the same order.
-template <typename T>
-__device__ void z_profile(T* z, const T* const* row, const T* w, int nv,
-                          int L) {
-  for (int l = 0; l < L; ++l) z[l] = T(0);
-  for (int k = 0; k < nv; ++k) {
-    const T* zr = row[k] + 3;
-    const T wk = w[k];
-    for (int l = 0; l < L; ++l) z[l] = fma(wk, zr[l], z[l]);
-  }
-  for (int l = 1; l < L; ++l)
-    if (z[l] > z[l - 1]) z[l] = z[l - 1] - ztop_clamp<T>();
-}
-
-// Streamline layer resolution (reference :903-944): above the surface -> 1,
-// below the bottom -> L-1, else bisection; not found -> 1, then clip to
-// [1, L-1].  The trip count is the TPU kernel's fixed
-// ceil(log2(max(2, L))) + 2.
-template <typename T>
-__device__ int layer_binary(const T* z, int L, T d) {
-  bool above = d > z[0] + eps_layer<T>();
-  bool below = d < z[L - 1] - eps_layer<T>();
-  int lo = 1, hi = L - 1, ans = 1;
-  int trips = 2;
-  for (int m = 1; m < (L > 2 ? L : 2); m <<= 1) ++trips;
-  for (int it = 0; it < trips && lo <= hi; ++it) {
-    int mid = (lo + hi) >> 1;
-    T top = z[mid - 1], bot = z[mid];
-    if (d <= top + eps_layer<T>() && d >= bot - eps_layer<T>()) {
-      ans = mid;
-      break;
-    }
-    if (d > top + eps_layer<T>()) hi = mid - 1; else lo = mid + 1;
-  }
-  ans = ans < 1 ? 1 : (ans > L - 1 ? L - 1 : ans);
-  return above ? 1 : (below ? L - 1 : ans);
-}
-
-// Vertical lerp parameter; fail if |z_up - z_dn| < 1e-12 (:958-985).
-template <typename T>
-__device__ T lerp_t(const T* z, int layer, T d, bool& ok_denom) {
-  const T z_dn = z[layer], z_up = z[layer - 1];
-  T x = d < z_dn ? z_dn : d;
-  x = x > z_up ? z_up : x;
-  const T denom = z_up - z_dn;
-  ok_denom = fabs(denom) >= eps_zero<T>();
-  return (x - z_dn) / (ok_denom ? denom : T(1));
-}
-
-// Wachspress-weighted velocities at layer-1 (v_up) and layer (v_dn).
-template <typename T>
-__device__ void pick_velocity(const T* const* row, const T* w, int nv, int L,
-                              int layer, T* v_up, T* v_dn) {
-  const int ov = 3 + L;
-  for (int c = 0; c < 3; ++c) {
-    T au = T(0), ad = T(0);
-    for (int k = 0; k < nv; ++k) {
-      au = fma(w[k], row[k][ov + 3 * (layer - 1) + c], au);
-      ad = fma(w[k], row[k][ov + 3 * layer + c], ad);
-    }
-    v_up[c] = au;
-    v_dn[c] = ad;
-  }
-}
-
-// Vertical velocity on interfaces, lerped: dn_if = min(layer, L),
-// up_if = min(max(layer-1, 0), L).
-template <typename T>
-__device__ T pick_wvel(const T* const* row, const T* w, int nv, int L,
-                       int layer, T t) {
-  const int ow = 3 + 4 * L, lp1 = L + 1;
-  const int dn_if = layer < lp1 - 1 ? layer : lp1 - 1;
-  int up_if = layer - 1 > 0 ? layer - 1 : 0;
-  up_if = up_if < lp1 - 1 ? up_if : lp1 - 1;
-  T wu = T(0), wd = T(0);
-  for (int k = 0; k < nv; ++k) {
-    wu = fma(w[k], row[k][ow + up_if], wu);
-    wd = fma(w[k], row[k][ow + dn_if], wd);
-  }
-  return t * wu + (T(1) - t) * wd;
-}
-
-// ---------------------------------------------------------------------------
-// stage evaluations
-// ---------------------------------------------------------------------------
-
-// CalcVelocityAt (streamline): returns ok, writes hv (zero when not ok) and wv.
-template <typename T>
-__device__ bool eval_streamline(Particle<T>& s, const T* const* row,
-                                const T* p, T* hv, T& wv) {
-  const int nv = s.nv, L = s.L;
-  const T d = s.depth_neg;
-  T w[K_MAX];
-  const bool inside = geometry(s.vp, nv, p, w);
-  z_profile(s.z, row, w, nv, L);
-  const int layer = layer_binary(s.z, L, d);
-  bool ok_denom;
-  const T t = lerp_t(s.z, layer, d, ok_denom);
-  T v_up[3], v_dn[3];
-  pick_velocity(row, w, nv, L, layer, v_up, v_dn);
-  const bool ok_mag = norm3(v_dn) >= eps_zero<T>() && norm3(v_up) >= eps_zero<T>();
-  for (int c = 0; c < 3; ++c) hv[c] = t * v_up[c] + (T(1) - t) * v_dn[c];
-  const bool ok_final = norm3(hv) >= eps_zero<T>();
-  wv = pick_wvel(row, w, nv, L, layer, t);
-
-  const bool ok = inside && ok_denom && ok_mag && ok_final;
-  if (!ok) {
-    hv[0] = hv[1] = hv[2] = T(0);
-    wv = T(0);
-  }
-  return ok;
-}
-
 // ---------------------------------------------------------------------------
 // the step
 // ---------------------------------------------------------------------------
@@ -329,22 +159,6 @@ __device__ void advect_on_sphere(const T* p, const T* v, T dtl, T* out) {
   T theta = speed * dtl / (rr == T(0) ? T(1) : rr);
   rotate(p, u, theta, out);
   if (degen) { out[0] = p[0]; out[1] = p[1]; out[2] = p[2]; }
-}
-
-// Loads the particle's frozen cell: nv (clipped to K), its vertex rows and
-// the vertex positions.
-template <typename T>
-__device__ void load_cell(Particle<T>& s, int i, const int32_t* nv_in,
-                          const int32_t* vids, int K, int F, int L,
-                          const T* depth_neg, const T* table) {
-  s.L = L;
-  const int nv = nv_in[i];
-  s.nv = nv < K ? nv : K;
-  s.depth_neg = depth_neg[i];
-  for (int k = 0; k < s.nv; ++k) {
-    s.row[k] = table + (int64_t)vids[(int64_t)i * K + k] * F;
-    for (int c = 0; c < 3; ++c) s.vp[k][c] = s.row[k][c];
-  }
 }
 
 // One RK4 (or Euler) step from p0.  eval(p, stage, hv, wv, at) evaluates
@@ -385,56 +199,6 @@ __device__ __forceinline__ bool rk_step(const T* p0, T dt, int euler,
   T den = xl == T(0) ? T(1) : xl;
   for (int c = 0; c < 3; ++c) np_[c] = good ? xt[c] / den * r : p0[c];
   return ok1 && ok2 && ok3 && ok4;
-}
-
-// The full column's layer at the start position p0 (the layer the TPU
-// step loop's repair returns for a streamline).
-template <typename T>
-__device__ int start_layer(Particle<T>& s, const T* p0) {
-  T w[K_MAX];
-  geometry(s.vp, s.nv, p0, w);
-  z_profile(s.z, s.row, w, s.nv, s.L);
-  return layer_binary(s.z, s.L, s.depth_neg);
-}
-
-// K1 and K2 also serve as the window kernels' repair (the masked form):
-// given ``only``, a lane whose flag is false is skipped, and a lane whose
-// flag is set overwrites its outputs with the full-column step and writes
-// the start position's layer, clipped to [1, L-1], to layer_out.
-
-template <typename T>
-__global__ void __launch_bounds__(128)
-streamline_step_kernel(const T* __restrict__ pos, const T* __restrict__ depth_neg,
-                       const int32_t* __restrict__ nv_in,
-                       const int32_t* __restrict__ vids,
-                       const T* __restrict__ table, int n, int K, int F, int L,
-                       T dt, int euler, T* __restrict__ new_pos,
-                       T* __restrict__ hvel, T* __restrict__ wvel,
-                       bool* __restrict__ ok_out,
-                       const bool* __restrict__ only,
-                       int32_t* __restrict__ layer_out) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n || (only != nullptr && !only[i])) return;
-
-  Particle<T> s;
-  load_cell(s, i, nv_in, vids, K, F, L, depth_neg, table);
-  const T p0[3] = {pos[3 * (int64_t)i], pos[3 * (int64_t)i + 1],
-                   pos[3 * (int64_t)i + 2]};
-  auto eval = [&](const T* p, int, T* hv, T& wv, T*) {
-    return eval_streamline(s, s.row, p, hv, wv);
-  };
-  T hv[3], wv, np_[3];
-  const bool ok = rk_step(p0, dt, euler, 0, eval, np_, hv, wv, (T*)nullptr);
-  for (int c = 0; c < 3; ++c) {
-    new_pos[3 * (int64_t)i + c] = np_[c];
-    hvel[3 * (int64_t)i + c] = hv[c];
-  }
-  wvel[i] = wv;
-  ok_out[i] = ok;
-  if (only != nullptr) {
-    const int layer = start_layer(s, p0);
-    layer_out[i] = layer < 1 ? 1 : (layer > L - 1 ? L - 1 : layer);
-  }
 }
 
 // ---------------------------------------------------------------------------
@@ -556,11 +320,44 @@ __device__ void stage_rows(T* rec_f, T* rec_b, const T* table_f,
   cp_async_wait_all();
 }
 
-// Containment and the normalised Wachspress weights at p (geometry's
-// arithmetic, spread over the group): lane j evaluates vertices j, j+G, ...
-// and writes their weights to st.w, every lane sums them in order, and
-// the owners normalise them in place.  bk holds B_k of the lane's vertices.
-// Returns inside.  Every lane of the group must call it.
+// The mask of the group of G lanes that holds this thread.
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  return G == 32 ? 0xffffffffu
+                 : ((1u << (G % 32)) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+}
+
+// B_k = area(v_{k-1}, v_k, v_{k+1}) of the lane's vertices k = lane,
+// lane+G, ... (1 for k >= nv): fixed for the step.
+template <int G, typename T>
+__device__ __forceinline__ void vertex_bk(const Staged<T>& st, int lane,
+                                          T* bk) {
+  const int nv = st.nv;
+#pragma unroll
+  for (int q = 0; q < (K_MAX + G - 1) / G; ++q) {
+    const int k = lane + q * G;
+    bk[q] = T(1);
+    if (k < nv)
+      bk[q] = tri_area(st.f + (k == 0 ? nv - 1 : k - 1) * st.rsf,
+                       st.f + k * st.rsf,
+                       st.f + (k + 1 == nv ? 0 : k + 1) * st.rsf);
+  }
+}
+
+// Spherical point-in-polygon (inside iff cross(A_k, B_k) . p >= 0 on every
+// edge; a non-finite p is outside) and the Wachspress weights
+// w_k = B_k / (A_k * A_{k+1}), normalised, spread over the group: lane j
+// evaluates vertices j, j+G, ... and writes their weights to st.w, every
+// lane sums them in order, and the owners normalise them in place.  bk
+// holds B_k of the lane's vertices (vertex_bk).  Returns inside.  Every
+// lane of the group must call it.
+// The edge test is evaluated as cross(A_k - p, B_k - p) . p, the same
+// determinant (subtracting p from two of its columns leaves it unchanged)
+// without the cancellation of cross(A_k, B_k): at float32, products of
+// 6.4e6-m coordinates misplace the edge plane by tens of metres, so a
+// particle that stops that close to an edge fails the test in the cell that
+// relocation (nearest centre) gives it, fails every stage at its start
+// position and, under FailMode.ZERO, never moves again.
 template <int G, typename T>
 __device__ __forceinline__
 bool geometry_group(const Staged<T>& st, const T* bk, const T* p,
@@ -893,9 +690,7 @@ __device__ void window_step(const T* __restrict__ pos,
   const int g = threadIdx.x / G, lane = threadIdx.x % G;
   const int i = blockIdx.x * (blockDim.x / G) + g;
   if (i >= n) return;                     // the whole group leaves
-  const unsigned gmask =
-      G == 32 ? 0xffffffffu
-              : ((1u << (G % 32)) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+  const unsigned gmask = group_mask<G>();
   const int A = PATH ? n_attrs : 0;
   const int part = (5 + A) * W;
   T* slot = reinterpret_cast<T*>(smem_raw) +
@@ -917,17 +712,8 @@ __device__ void window_step(const T* __restrict__ pos,
   stage_rows<G>(rec_f, PATH ? rec_b : (T*)nullptr, table_f, table_b,
              vids + (int64_t)i * K, nv, F, L, W, A, s, lane);
   __syncwarp(gmask);
-
-  T bk[(K_MAX + G - 1) / G];              // B_k, fixed for the step
-#pragma unroll
-  for (int q = 0; q < (K_MAX + G - 1) / G; ++q) {
-    const int k = lane + q * G;
-    bk[q] = T(1);
-    if (k < nv)
-      bk[q] = tri_area(st.f + (k == 0 ? nv - 1 : k - 1) * st.rsf,
-                       st.f + k * st.rsf,
-                       st.f + (k + 1 == nv ? 0 : k + 1) * st.rsf);
-  }
+  T bk[(K_MAX + G - 1) / G];
+  vertex_bk<G>(st, lane, bk);
   const T p0[3] = {pos[3 * (int64_t)i], pos[3 * (int64_t)i + 1],
                    pos[3 * (int64_t)i + 2]};
   int layer = 1;
@@ -1020,17 +806,18 @@ int launch_window(WINDOW_KERNEL_PARAMS, void* stream) {
 }
 
 // ---------------------------------------------------------------------------
-// the full-column pathline step (K2)
+// the full-column steps (K1, K2)
 // ---------------------------------------------------------------------------
 //
-// K2 takes K4's form on the whole column.  A group of kPathGroup lanes of
-// one warp advances one particle.  Before stage 1 the group copies, for
-// each of the cell's nv vertex rows, xyz and ztop[0..L) of the front table
-// and ztop[0..L) of the back table into the particle's slot of shared
-// memory (cp.async, one element a lane): the values a stage reads L at a
-// time.  A stage's weights come from geometry_group, as K4's.  Per
+// K1 and K2 take K3's and K4's form on the whole column.  A group of G lanes
+// of one warp advances one particle (kStreamGroup lanes for K1, kPathGroup
+// for K2).  Before stage 1 the group copies, for each of the cell's nv
+// vertex rows, xyz and ztop[0..L) of the (front) table, and for K2
+// ztop[0..L) of the back table, into the particle's slot of shared memory
+// (cp.async, one element a lane): the values a stage reads L at a time.  A
+// stage's weights come from geometry_group, as K3's and K4's.  Per
 // snapshot, lane j then sums the profile at layers j, j+G, ... (each a
-// Wachspress sum over k in order with explicit fma, as K4's window sums)
+// Wachspress sum over k in order with explicit fma, as the window sums)
 // into its registers, and the group clamps, searches and lerps that
 // distributed profile with shuffles and votes:
 // - the clamp (_clamp_profile(exact=True)): the sequential recurrence
@@ -1039,48 +826,65 @@ int launch_window(WINDOW_KERNEL_PARAMS, void* stream) {
 //   group tests every pair at once (the neighbour by __shfl_up_sync, then
 //   __any_sync) and runs the recurrence, a shuffle a layer, only when one
 //   ascends;
-// - the first-hit linear search: each lane tests its layers' intervals, one
+// - K1's bisection: every lane takes the same probes, z[mid-1] and z[mid]
+//   shuffled from the lanes that hold them.  It stays a bisection: the
+//   clamp spaces a plateau 1e-9 apart, under EPS_LAYER, so several
+//   intervals can hold one depth, and a first-hit search would return
+//   another layer than the reference's bisection;
+// - K2's first-hit linear search: each lane tests its layers' intervals, one
 //   ballot a register, and the lowest set bit of the first non-empty ballot
 //   is the layer where the ascending loop stops;
 // - the lerp's z[layer-1] and z[layer] come from the lanes that hold them.
-// The 2 x kPicks picks at the layers found are independent sums, one a
-// lane, read straight from the tables' rows; shuffles bring them to every
-// lane, the blend and the RK move run in every lane, and lane 0 writes the
-// outputs.  Every rounding is K4's, so a window step that does not miss is
-// bit-equal to this one.
+// The picks at the layers found (K1's 8, K2's 2 x kPicks) are independent
+// sums, one a lane, read straight from the tables' rows; shuffles bring them
+// to every lane, the guards (K1) or the blend (K2) and the RK move run in
+// every lane, and lane 0 writes the outputs.  Every rounding is K3's (K4's),
+// so a window step that does not miss is bit-equal to this one.
 //
-// The masked form (the window path's repair, launched after every K4 step
-// with under 0.02 % of the lanes flagged) is one warp per 32 particles:
-// the warp reads their flags with one load and a ballot, and its groups
-// step the flagged particles one after another, so a launch without a
-// flag costs n/32 warps.  The layer it writes for the start position is
-// stage 1's front layer: stage 1 is evaluated there.
+// The masked form (the window paths' repair, launched after every K3/K4
+// step with under 0.5 % of the lanes flagged): warps read the flags of 32
+// particles at a time with one load and a ballot, and their groups step
+// the flagged ones, so a launch without a flag costs a scan of the n
+// flags.  The layer it writes for the start position is stage 1's (front)
+// layer: stage 1 is evaluated there.  Each kernel keeps its own scan and
+// grid (streamline_step_kernel, pathline_step_kernel).
+//
+// Each kernel's lanes a particle, register cap and table loads in flight
+// stand beside it (kStreamGroup, kPathGroup).
 
-// Lanes a particle: the fastest of 4, 8, 16 and 32 on the H100 at the main
-// path's shape, f32 and f64 (PERF.md); at L = 60 a lane holds two layers.
-constexpr int kPathGroup = 32;
-// Table loads a pick lane issues before it sums them: the vertices' rows
-// are scattered, so one load after another would wait on each in turn (4
-// measured as fast as 8 with fewer registers).
-constexpr int kPickLoads = 4;
-// Shared memory a K2 block aims at.
-constexpr int kPathSmemTarget = 32 * 1024;
-// Blocks of kBlockThreads lanes an SM must hold, which caps the registers a
-// lane.  Occupancy, set by registers, is what a K2 stage waits on: the main
-// path's instance (L <= 64, unmasked) is capped at 64 registers at f32 and
-// 128 at f64, without spills, so that an SM holds 32 (f32) or 16 (f64)
-// warps (1.39 against 1.79 ms uncapped at f32 on the H100, PERF.md).  The
-// masked form (a few lanes a launch) and the generic width are not capped.
-template <typename T, int LT, bool MASKED>
-constexpr int path_min_blocks() {
-  return MASKED || LT > 64 ? 1 : (sizeof(T) == 8 ? 2 : 4);
+// Shared memory a block aims at.
+constexpr int kColumnSmemTarget = 32 * 1024;
+
+// T values of one slot: weights (K), front records xyz(3) + ztop(L), and
+// with two snapshots (K2) back records ztop(L); odd, as slot_values.
+__host__ __device__ inline int column_slot_values(int K, int L, int NS) {
+  const int S = K + K * (3 + L) + (NS - 1) * K * L;
+  return S + (S % 2 == 0);
 }
 
-// T values of one K2 slot: weights (K), front records xyz(3) + ztop(L),
-// back records ztop(L); odd, as slot_values.
-__host__ __device__ inline int column_slot_values(int K, int L) {
-  const int S = K + K * (3 + L) + K * L;
-  return S + (S % 2 == 0);
+// The group's copy of the particle's cell into its slot: xyz and ztop[0..L)
+// of table_f's rows to rec_f (st.f, 3+L apart) and, with NS = 2,
+// ztop[0..L) of table_b's to rec_b (st.b, L apart); then B_k of the lane's
+// vertices into bk.  Every lane of the group must call it.
+template <int G, int NS, typename T>
+__device__ __forceinline__ void stage_columns(const Staged<T>& st, T* rec_f,
+                                              T* rec_b, const T* table_f,
+                                              const T* table_b,
+                                              const int32_t* vid, int F,
+                                              int L, unsigned gmask, int lane,
+                                              T* bk) {
+  __syncwarp(gmask);                      // the slot's last step is done
+  for (int k = 0; k < st.nv; ++k) {
+    const int64_t row = (int64_t)vid[k] * F;
+    for (int e = lane; e < 3 + L; e += G)
+      cp_async(rec_f + k * (3 + L) + e, table_f + row + e);
+    if (NS == 2)
+      for (int e = lane; e < L; e += G)
+        cp_async(rec_b + k * L + e, table_b + row + 3 + e);
+  }
+  cp_async_wait_all();
+  __syncwarp(gmask);
+  vertex_bk<G>(st, lane, bk);
 }
 
 // One snapshot's clamped (or raw) profile at a stage, spread over the
@@ -1126,8 +930,9 @@ struct Column {
   }
 };
 
-// _clamp_profile(exact=True) on the group's profile; leaves p set.
-template <typename T, int G, int LT>
+// _clamp_profile(exact=True) on the group's profile; with NEED_P (K2's
+// linear search reads z[l-1]) it leaves p set.
+template <bool NEED_P, typename T, int G, int LT>
 __device__ __forceinline__ void clamp_column(Column<T, G, LT>& col,
                                              unsigned gmask, int lane) {
   using C = Column<T, G, LT>;
@@ -1151,7 +956,34 @@ __device__ __forceinline__ void clamp_column(Column<T, G, LT>& col,
       p = z;
     }
   }
-  col.neighbours(gmask, lane);
+  if (NEED_P) col.neighbours(gmask, lane);
+}
+
+// Streamline layer resolution (reference kernel :903-944, layer_binary_w's
+// on the full column): above the surface -> 1, below the bottom -> L-1,
+// else bisection with the TPU kernel's fixed trip count
+// ceil(log2(max(2, L))) + 2; not found -> 1, then clip to [1, L-1].  Every
+// lane of the group takes the same probes.
+template <typename T, int G, int LT>
+__device__ __forceinline__ int layer_binary_column(const Column<T, G, LT>& col,
+                                                   T d, unsigned gmask) {
+  const int L = col.L;
+  const bool above = d > col.at(0, gmask) + eps_layer<T>();
+  const bool below = d < col.at(L - 1, gmask) - eps_layer<T>();
+  int lo = 1, hi = L - 1, ans = 1;
+  int trips = 2;
+  for (int m = 1; m < (L > 2 ? L : 2); m <<= 1) ++trips;
+  for (int it = 0; it < trips && lo <= hi; ++it) {
+    const int mid = (lo + hi) >> 1;
+    const T top = col.at(mid - 1, gmask), bot = col.at(mid, gmask);
+    if (d <= top + eps_layer<T>() && d >= bot - eps_layer<T>()) {
+      ans = mid;
+      break;
+    }
+    if (d > top + eps_layer<T>()) hi = mid - 1; else lo = mid + 1;
+  }
+  ans = ans < 1 ? 1 : (ans > L - 1 ? L - 1 : ans);
+  return above ? 1 : (below ? L - 1 : ans);
 }
 
 // layer_linear on the group's clamped profile (reference TBB kernel
@@ -1180,7 +1012,8 @@ __device__ __forceinline__ int layer_linear_column(const Column<T, G, LT>& col,
   return above ? 1 : (below ? L - 1 : (first >= 0 ? first : 1));
 }
 
-// lerp_t on the group's profile.
+// Vertical lerp parameter on the group's profile; fail if
+// |z_up - z_dn| < 1e-12 (reference :958-985).
 template <typename T, int G, int LT>
 __device__ __forceinline__ T lerp_t_column(const Column<T, G, LT>& col,
                                            int layer, T d, unsigned gmask,
@@ -1194,7 +1027,9 @@ __device__ __forceinline__ T lerp_t_column(const Column<T, G, LT>& col,
 }
 
 // Row offset of pick m (pick_offset's order) at the stage layer ``layer``,
-// or -1 for an attribute slot >= A.
+// or -1 for an attribute slot >= A.  The vertical velocity's interfaces
+// are layer-1 and layer (the reference's min(max(layer-1, 0), L) and
+// min(layer, L) for layer in [1, L-1]).
 __device__ __forceinline__ int pick_column(int m, int layer, int L, int A) {
   const bool up = m < 3 || m == 6 || (m >= 8 && m < 8 + A_MAX);
   const int l = up ? layer - 1 : layer;
@@ -1202,6 +1037,326 @@ __device__ __forceinline__ int pick_column(int m, int layer, int L, int A) {
   if (m < 8) return 3 + 4 * L + l;
   const int ai = (m - 8) % A_MAX;
   return ai < A ? 4 + 5 * L + A * l + ai : -1;
+}
+
+// The lane's RB pick sums acc[r] = sum_k w_k * src[r][row of vertex k]
+// (zero where !has[r]), k = 0..nv-1 in order with explicit fma, from LOADS
+// table loads at a time.
+template <typename T, int RB, int LOADS>
+__device__ __forceinline__ void pick_sums(const T* const* src,
+                                          const bool* has,
+                                          const int32_t* vid, const T* w,
+                                          int nv, int F, T* acc) {
+#pragma unroll
+  for (int r = 0; r < RB; ++r) acc[r] = T(0);
+  for (int k0 = 0; k0 < nv; k0 += LOADS) {
+    T v[LOADS][RB];
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u) {
+      const bool real = k0 + u < nv;
+      const int64_t row = real ? (int64_t)vid[k0 + u] * F : 0;
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+        v[u][r] = real && has[r] ? src[r][row] : T(0);
+    }
+#pragma unroll
+    for (int u = 0; u < LOADS; ++u)
+#pragma unroll
+      for (int r = 0; r < RB; ++r)
+        if (k0 + u < nv && has[r]) acc[r] = fma(w[k0 + u], v[u][r], acc[r]);
+  }
+}
+
+// Bytes of a slot and particles a block of a full-column step (NS
+// snapshots, G lanes a particle): as many whole warps as fit
+// kColumnSmemTarget, at least one, at most kBlockThreads lanes.
+inline void column_layout(int G, int NS, int K, int L, int size, int* slot,
+                          int* P) {
+  *slot = column_slot_values(K, L, NS) * size;
+  const int warps = kColumnSmemTarget / (*slot * (32 / G));
+  *P = (32 / G) * (warps < 1 ? 1 : (warps > kBlockThreads / 32
+                                    ? kBlockThreads / 32 : warps));
+}
+
+// Blocks of ``kernel`` (``threads`` lanes, ``smem`` bytes of shared memory
+// a block) that the current device holds at once.  The runtime is asked
+// once per kernel, device and shape; later launches read the answer.
+template <typename Args>
+cudaError_t resident_wave(void (*kernel)(Args), int threads, int smem,
+                          int* blocks) {
+  struct Known {
+    const void* kernel;
+    int dev, threads, smem, blocks;
+  };
+  static std::mutex mu;
+  static std::vector<Known> known;
+  int dev;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const std::lock_guard<std::mutex> hold(mu);
+  for (const Known& k : known)
+    if (k.kernel == (const void*)kernel && k.dev == dev &&
+        k.threads == threads && k.smem == smem) {
+      *blocks = k.blocks;
+      return cudaSuccess;
+    }
+  int sms, per_sm;
+  if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
+                                  dev)) != cudaSuccess ||
+      (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+           &per_sm, kernel, threads, smem)) != cudaSuccess)
+    return e;
+  *blocks = sms * (per_sm > 0 ? per_sm : 1);
+  known.push_back({(const void*)kernel, dev, threads, smem, *blocks});
+  return cudaSuccess;
+}
+
+// Launch a full-column step kernel (NS snapshots, G lanes a particle): the
+// LT = 64 instance k64 for L <= 64 (the main path's 60 layers: fewer
+// registers a lane) or the L_MAX one, P groups a block (column_layout).
+// Plain, a group a particle.  Masked, the kernel's scan sets the grid:
+// with ONE_WAVE (K1) the grid is one wave of resident blocks whose warps
+// step through the flag chunks grid-stride; without (K2) a warp takes one
+// chunk of 32 flags.
+template <int G, int NS, bool ONE_WAVE, typename T, typename Args>
+int launch_column(void (*k64)(Args), void (*k_max)(Args), const Args& a,
+                  void* stream) {
+  int slot, P;
+  column_layout(G, NS, a.K, a.L, (int)sizeof(T), &slot, &P);
+  const int smem = P * slot;
+  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
+  auto kernel = a.L <= 64 ? k64 : k_max;
+  cudaError_t e = cudaSuccess;
+  if (smem > 48 * 1024)
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess || a.n == 0) return (int)e;
+  int blocks = a.only != nullptr ? (a.n + P * G - 1) / (P * G)
+                                 : (a.n + P - 1) / P;
+  if (ONE_WAVE && a.only != nullptr) {
+    int wave;
+    if ((e = resident_wave(kernel, P * G, smem, &wave)) != cudaSuccess)
+      return (int)e;
+    blocks = blocks < wave ? blocks : wave;
+  }
+  kernel<<<blocks, P * G, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+// ---- K1 ----
+
+// Lanes a particle: 8 of 8, 16 and 32, the fastest at f32 on the H100 at
+// the main path's shape (PERF.md).  K1's stage has half K2's profile work
+// and one search; at L = 60 a lane holds eight layers.
+constexpr int kStreamGroup = 8;
+// Table loads a pick lane issues before it sums them: the vertices' rows
+// are scattered, so one load after another would wait on each in turn (8:
+// 0.59 against 0.62 ms for 4 at f32).
+constexpr int kStreamLoads = 8;
+// Blocks of kBlockThreads lanes an SM must hold, which caps the registers
+// a lane: 3 caps the plain f32 L <= 64 instance at 80 registers (96
+// uncapped; 64 spill) without spills, so that an SM holds 96 particles
+// (shared memory allows 108), 0.57-0.59 against 0.70-0.71 ms uncapped.  At
+// f64 shared memory bounds occupancy first; the masked form and the
+// generic width are not capped.
+template <typename T, int LT, bool MASKED>
+constexpr int stream_min_blocks() {
+  return MASKED || LT > 64 || sizeof(T) == 8 ? 1 : 3;
+}
+
+template <typename T>
+struct StreamlineArgs {
+  const T* pos;
+  const T* depth_neg;
+  const int32_t* nv;
+  const int32_t* vids;
+  const T* table;
+  int n, K, F, L;
+  T dt;
+  int euler;
+  T* new_pos;
+  T* hvel;
+  T* wvel;
+  bool* ok;
+  const bool* only;
+  int32_t* layer;
+};
+
+// CalcVelocityAt(pos, cell) (streamline) by the particle's group: returns
+// ok, writes hv (zero when not ok), wv and the stage's layer.
+template <typename T, int LT>
+__device__ __forceinline__
+bool eval_streamline_stage(const StreamlineArgs<T>& a, const Staged<T>& st,
+                           const int32_t* vid, const T* bk, const T* p,
+                           unsigned gmask, int lane, T* hv, T& wv,
+                           int& layer) {
+  constexpr int G = kStreamGroup;
+  const bool inside = geometry_group<G>(st, bk, p, gmask, lane);
+  const T d = st.d;
+  Column<T, G, LT> col;
+  col.L = a.L;
+  col.sum(st.w, st.f + 3, st.rsf, st.nv, lane);
+  clamp_column<false>(col, gmask, lane);
+  layer = layer_binary_column(col, d, gmask);
+  bool ok_denom;
+  const T t = lerp_t_column(col, layer, d, gmask, ok_denom);
+
+  // the picks: job j < 8 is pick j (pick_offset's order, no attributes)
+  constexpr int RB = (8 + G - 1) / G;
+  const T* src[RB];
+  bool has[RB];
+  T acc[RB];
+#pragma unroll
+  for (int r = 0; r < RB; ++r) {
+    const int j = lane + r * G;
+    has[r] = j < 8;
+    src[r] = a.table + (j < 8 ? pick_column(j, layer, a.L, 0) : 0);
+  }
+  pick_sums<T, RB, kStreamLoads>(src, has, vid, st.w, st.nv, a.F, acc);
+  T v[8];
+#pragma unroll
+  for (int m = 0; m < 8; ++m) v[m] = __shfl_sync(gmask, acc[m / G], m % G, G);
+  const bool ok_mag = norm3(v + 3) >= eps_zero<T>() && norm3(v) >= eps_zero<T>();
+#pragma unroll
+  for (int c = 0; c < 3; ++c) hv[c] = t * v[c] + (T(1) - t) * v[3 + c];
+  wv = t * v[6] + (T(1) - t) * v[7];
+  const bool ok = inside && ok_denom && ok_mag && norm3(hv) >= eps_zero<T>();
+  if (!ok) {
+    hv[0] = hv[1] = hv[2] = T(0);
+    wv = T(0);
+  }
+  return ok;
+}
+
+// The step of particle i by its group, in the group's slot.
+template <typename T, int LT>
+__device__ void streamline_group_step(const StreamlineArgs<T>& a, int i,
+                                      T* slot, unsigned gmask, int lane) {
+  constexpr int G = kStreamGroup;
+  const int K = a.K, L = a.L;
+  const int nvr = a.nv[i];
+  const int32_t* vid = a.vids + (int64_t)i * K;
+  Staged<T> st;
+  st.w = slot;
+  st.f = slot + K;
+  st.b = nullptr;
+  st.rsf = 3 + L;
+  st.rsb = 0;
+  st.nv = nvr < K ? nvr : K;
+  st.A = 0;
+  st.d = a.depth_neg[i];
+  T bk[(K_MAX + G - 1) / G];
+  stage_columns<G, 1>(st, slot + K, (T*)nullptr, a.table, (const T*)nullptr,
+                      vid, a.F, L, gmask, lane, bk);
+  const T p0[3] = {a.pos[3 * (int64_t)i], a.pos[3 * (int64_t)i + 1],
+                   a.pos[3 * (int64_t)i + 2]};
+  int layer = 1;
+  auto eval = [&](const T* p, int stage, T* hv, T& wv, T*) {
+    int lay;
+    const bool ok = eval_streamline_stage<T, LT>(a, st, vid, bk, p, gmask,
+                                                 lane, hv, wv, lay);
+    if (stage == 0) layer = lay;
+    return ok;
+  };
+  T hv[3], wv, np_[3];
+  const bool ok = rk_step(p0, a.dt, a.euler, 0, eval, np_, hv, wv,
+                          (T*)nullptr);
+  if (lane != 0) return;
+  for (int c = 0; c < 3; ++c) {
+    a.new_pos[3 * (int64_t)i + c] = np_[c];
+    a.hvel[3 * (int64_t)i + c] = hv[c];
+  }
+  a.wvel[i] = wv;
+  a.ok[i] = ok;
+  if (a.only != nullptr)
+    a.layer[i] = layer < 1 ? 1 : (layer > L - 1 ? L - 1 : layer);
+}
+
+// K1's particles.  Plain: group g of block b steps particle b*P + g.
+// Masked (only set): the grid is one resident wave (launch_column), and
+// warp w scans the flags of particles 32w .., 32(w + W) .., ... (W warps
+// in the grid), 32 with one load and a ballot; each of its 32/G groups
+// keeps the next flagged particle, and the groups step theirs together
+// once each holds one, or at the end.  A step's latency, not the number of
+// flagged lanes, is what a masked launch waits on: one warp a chunk took a
+// step a wave (60 against 45 us at f32 on the H100, PERF.md).
+template <int G, bool MASKED, typename Step>
+__device__ __forceinline__ void for_particles(int n, const bool* only,
+                                              Step step) {
+  if constexpr (!MASKED) {
+    const int i = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
+    if (i < n) step(i);
+  } else {
+    const int lane = threadIdx.x & 31, sub = lane / G;
+    const int stride = gridDim.x * blockDim.x;       // 32 x warps
+    int next = (blockIdx.x * blockDim.x + threadIdx.x) & ~31, base = 0;
+    unsigned flags = 0u;                  // all of these are the warp's
+    for (;;) {
+      int mine = -1, held = 0;            // a round: a particle a group
+      while (held < 32 / G) {
+        if (flags == 0u) {
+          if (next >= n) break;
+          base = next;
+          next += stride;
+          flags = __ballot_sync(0xffffffffu,
+                                base + lane < n && only[base + lane]);
+          continue;
+        }
+        if (held == sub) mine = base + __ffs(flags) - 1;
+        flags &= flags - 1u;
+        ++held;
+      }
+      if (held == 0) return;
+      if (mine >= 0) step(mine);
+    }
+  }
+}
+
+template <typename T, int LT, bool MASKED>
+__global__ void __launch_bounds__(kBlockThreads,
+                                  stream_min_blocks<T, LT, MASKED>())
+streamline_step_kernel(StreamlineArgs<T> a) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  constexpr int G = kStreamGroup;
+  T* slot = reinterpret_cast<T*>(smem_raw) +
+            (size_t)(threadIdx.x / G) * column_slot_values(a.K, a.L, 1);
+  const unsigned gmask = group_mask<G>();
+  const int lane = threadIdx.x % G;
+  for_particles<G, MASKED>(a.n, a.only, [&](int i) {
+    streamline_group_step<T, LT>(a, i, slot, gmask, lane);
+  });
+}
+
+template <typename T>
+int launch_streamline(const StreamlineArgs<T>& a, void* stream) {
+  if (a.K > K_MAX || a.L > L_MAX || a.L < 2) return (int)cudaErrorInvalidValue;
+  constexpr int G = kStreamGroup;
+  return a.only != nullptr
+             ? launch_column<G, 1, true, T>(
+                   streamline_step_kernel<T, 64, true>,
+                   streamline_step_kernel<T, L_MAX, true>, a, stream)
+             : launch_column<G, 1, true, T>(
+                   streamline_step_kernel<T, 64, false>,
+                   streamline_step_kernel<T, L_MAX, false>, a, stream);
+}
+
+// ---- K2 ----
+
+// Lanes a particle: the fastest of 4, 8, 16 and 32 on the H100 at the main
+// path's shape, f32 and f64 (PERF.md); at L = 60 a lane holds two layers.
+constexpr int kPathGroup = 32;
+// Table loads a pick lane issues before it sums them (4 measured as fast
+// as 8 with fewer registers).
+constexpr int kPathLoads = 4;
+// Blocks of kBlockThreads lanes an SM must hold, which caps the registers a
+// lane.  Occupancy, set by registers, is what a K2 stage waits on: the main
+// path's instance (L <= 64, unmasked) is capped at 64 registers at f32 and
+// 128 at f64, without spills, so that an SM holds 32 (f32) or 16 (f64)
+// warps (1.39 against 1.79 ms uncapped at f32 on the H100, PERF.md).  The
+// masked form (a few lanes a launch) and the generic width are not capped.
+template <typename T, int LT, bool MASKED>
+constexpr int path_min_blocks() {
+  return MASKED || LT > 64 ? 1 : (sizeof(T) == 8 ? 2 : 4);
 }
 
 template <typename T>
@@ -1246,7 +1401,7 @@ bool eval_column_stage(const PathlineArgs<T>& a, const Staged<T>& st,
     col.L = a.L;
     col.sum(st.w, sn == 0 ? st.f + 3 : st.b, sn == 0 ? st.rsf : st.rsb, nv,
             lane);
-    clamp_column(col, gmask, lane);
+    clamp_column<true>(col, gmask, lane);
     bool ok_layer, ok_denom;
     lay[sn] = layer_linear_column(col, d, gmask, lane, ok_layer);
     t[sn] = lerp_t_column(col, lay[sn], d, gmask, ok_denom);
@@ -1254,8 +1409,7 @@ bool eval_column_stage(const PathlineArgs<T>& a, const Staged<T>& st,
   }
   layer = lay[0];
 
-  // the picks: job j is pick j % kPicks of snapshot j / kPicks, summed
-  // over k in order from kPickLoads table loads at a time
+  // the picks: job j is pick j % kPicks of snapshot j / kPicks
   constexpr int NB = 2 * kPicks;
   constexpr int RB = (NB + G - 1) / G;
   const T* src[RB];
@@ -1270,24 +1424,8 @@ bool eval_column_stage(const PathlineArgs<T>& a, const Staged<T>& st,
                            : -1;
     has[r] = off >= 0;
     src[r] = (front ? a.table_f : a.table_b) + (off >= 0 ? off : 0);
-    acc[r] = T(0);
   }
-  for (int k0 = 0; k0 < nv; k0 += kPickLoads) {
-    T v[kPickLoads][RB];
-#pragma unroll
-    for (int u = 0; u < kPickLoads; ++u) {
-      const bool real = k0 + u < nv;
-      const int64_t row = real ? (int64_t)vid[k0 + u] * a.F : 0;
-#pragma unroll
-      for (int r = 0; r < RB; ++r)
-        v[u][r] = real && has[r] ? src[r][row] : T(0);
-    }
-#pragma unroll
-    for (int u = 0; u < kPickLoads; ++u)
-#pragma unroll
-      for (int r = 0; r < RB; ++r)
-        if (k0 + u < nv && has[r]) acc[r] = fma(st.w[k0 + u], v[u][r], acc[r]);
-  }
+  pick_sums<T, RB, kPathLoads>(src, has, vid, st.w, nv, a.F, acc);
   T hv_s[2][3], wv_s[2], at_s[2][A_MAX];
 #pragma unroll
   for (int sn = 0; sn < 2; ++sn) {
@@ -1322,40 +1460,20 @@ __device__ void pathline_group_step(const PathlineArgs<T>& a, int i, T* slot,
   constexpr int G = kPathGroup;
   const int K = a.K, L = a.L;
   const int nvr = a.nv[i];
-  const int nv = nvr < K ? nvr : K;
   const int32_t* vid = a.vids + (int64_t)i * K;
-  T* rec_f = slot + K;
-  T* rec_b = rec_f + K * (3 + L);
+  T* rec_b = slot + K + K * (3 + L);
   Staged<T> st;
   st.w = slot;
-  st.f = rec_f;
+  st.f = slot + K;
   st.b = rec_b;
   st.rsf = 3 + L;
   st.rsb = L;
-  st.nv = nv;
+  st.nv = nvr < K ? nvr : K;
   st.A = a.n_attrs;
   st.d = a.depth_neg[i];
-  __syncwarp(gmask);                      // the slot's last step is done
-  for (int k = 0; k < nv; ++k) {
-    const int64_t row = (int64_t)vid[k] * a.F;
-    for (int e = lane; e < 3 + L; e += G)
-      cp_async(rec_f + k * (3 + L) + e, a.table_f + row + e);
-    for (int e = lane; e < L; e += G)
-      cp_async(rec_b + k * L + e, a.table_b + row + 3 + e);
-  }
-  cp_async_wait_all();
-  __syncwarp(gmask);
-
-  T bk[(K_MAX + G - 1) / G];              // B_k, fixed for the step
-#pragma unroll
-  for (int q = 0; q < (K_MAX + G - 1) / G; ++q) {
-    const int k = lane + q * G;
-    bk[q] = T(1);
-    if (k < nv)
-      bk[q] = tri_area(st.f + (k == 0 ? nv - 1 : k - 1) * st.rsf,
-                       st.f + k * st.rsf,
-                       st.f + (k + 1 == nv ? 0 : k + 1) * st.rsf);
-  }
+  T bk[(K_MAX + G - 1) / G];
+  stage_columns<G, 2>(st, slot + K, rec_b, a.table_f, a.table_b, vid, a.F, L,
+                      gmask, lane, bk);
   const T p0[3] = {a.pos[3 * (int64_t)i], a.pos[3 * (int64_t)i + 1],
                    a.pos[3 * (int64_t)i + 2]};
   int layer = 1;
@@ -1388,7 +1506,9 @@ __device__ void pathline_group_step(const PathlineArgs<T>& a, int i, T* slot,
 
 // Plain: group g of block b steps particle b*P + g.  Masked (a.only set):
 // warp w of the grid scans particles 32w .. 32w+31, and in each round its
-// 32/G groups take the next 32/G flagged ones, one each.
+// 32/G groups take the next 32/G flagged ones, one each.  The warps of
+// different chunks step their flags at once (a resident wave stepping a
+// warp's chunks in turn took 56 against 46 us at f32 on the H100).
 template <typename T, int LT, bool MASKED>
 __global__ void __launch_bounds__(kBlockThreads,
                                   path_min_blocks<T, LT, MASKED>())
@@ -1397,10 +1517,8 @@ pathline_step_kernel(PathlineArgs<T> a) {
   constexpr int G = kPathGroup;
   const int g = threadIdx.x / G, lane = threadIdx.x % G;
   T* slot = reinterpret_cast<T*>(smem_raw) +
-            (size_t)g * column_slot_values(a.K, a.L);
-  const unsigned gmask =
-      G == 32 ? 0xffffffffu
-              : ((1u << (G % 32)) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
+            (size_t)g * column_slot_values(a.K, a.L, 2);
+  const unsigned gmask = group_mask<G>();
   if constexpr (!MASKED) {
     const int i = blockIdx.x * (blockDim.x / G) + g;
     if (i < a.n) pathline_group_step<T, LT>(a, i, slot, gmask, lane);
@@ -1422,67 +1540,19 @@ pathline_step_kernel(PathlineArgs<T> a) {
   }
 }
 
-// Bytes of a K2 slot and particles per block: as many whole warps as fit
-// kPathSmemTarget, at least one, at most kBlockThreads lanes.
-inline void pathline_layout(int K, int L, int size, int* slot, int* P) {
-  constexpr int G = kPathGroup;
-  *slot = column_slot_values(K, L) * size;
-  const int warps = kPathSmemTarget / (*slot * (32 / G));
-  *P = (32 / G) * (warps < 1 ? 1 : (warps > kBlockThreads / 32
-                                    ? kBlockThreads / 32 : warps));
-}
-
-template <typename T, int LT>
-int launch_pathline_lt(const PathlineArgs<T>& a, int P, int smem,
-                       void* stream) {
-  constexpr int G = kPathGroup;
-  const bool masked = a.only != nullptr;
-  auto kernel = masked ? pathline_step_kernel<T, LT, true>
-                       : pathline_step_kernel<T, LT, false>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  // a block holds P groups; masked, its P * G lanes scan as many particles
-  const int per_block = masked ? P * G : P;
-  if (a.n > 0)
-    kernel<<<(a.n + per_block - 1) / per_block, P * G, smem,
-             (cudaStream_t)stream>>>(a);
-  return (int)cudaGetLastError();
-}
-
-// K2 for L <= 64 (the main path's 60 layers: fewer registers a lane) or
-// any L <= L_MAX.
 template <typename T>
 int launch_pathline(const PathlineArgs<T>& a, void* stream) {
   if (a.n_attrs < 0 || a.n_attrs > A_MAX || a.K > K_MAX || a.L > L_MAX ||
       a.L < 2)
     return (int)cudaErrorInvalidValue;
-  int slot, P;
-  pathline_layout(a.K, a.L, (int)sizeof(T), &slot, &P);
-  const int smem = P * slot;
-  if (smem > kSmemMax) return (int)cudaErrorInvalidValue;
-  return a.L <= 64 ? launch_pathline_lt<T, 64>(a, P, smem, stream)
-                   : launch_pathline_lt<T, L_MAX>(a, P, smem, stream);
-}
-
-constexpr int kThreads = 128;
-
-inline int blocks_for(int n) { return (n + kThreads - 1) / kThreads; }
-
-template <typename T>
-int launch_streamline(const T* pos, const T* depth_neg, const int32_t* nv,
-                      const int32_t* vids, const T* table, int n, int K, int F,
-                      int L, T dt, int euler, T* new_pos, T* hvel, T* wvel,
-                      bool* ok, const bool* only, int32_t* layer,
-                      void* stream) {
-  if (n > 0)
-    streamline_step_kernel<T><<<blocks_for(n), kThreads, 0,
-                                (cudaStream_t)stream>>>(
-        pos, depth_neg, nv, vids, table, n, K, F, L, dt, euler, new_pos, hvel,
-        wvel, ok, only, layer);
-  return (int)cudaGetLastError();
+  constexpr int G = kPathGroup;
+  return a.only != nullptr
+             ? launch_column<G, 2, false, T>(
+                   pathline_step_kernel<T, 64, true>,
+                   pathline_step_kernel<T, L_MAX, true>, a, stream)
+             : launch_column<G, 2, false, T>(
+                   pathline_step_kernel<T, 64, false>,
+                   pathline_step_kernel<T, L_MAX, false>, a, stream);
 }
 
 // The window kernels for W == 8 (the main path's) or any W <= W_MAX.
@@ -1512,10 +1582,14 @@ int stage_kernel_k_max() { return K_MAX; }
 int stage_kernel_l_max() { return L_MAX; }
 int stage_kernel_a_max() { return A_MAX; }
 int stage_kernel_w_max() { return W_MAX; }
-// K2's shared memory a particle (bytes) and particles a block.
+// K1's and K2's shared memory a particle (bytes) and particles a block.
+void streamline_step_layout(int K, int L, int itemsize, int* slot_bytes,
+                            int* particles) {
+  column_layout(kStreamGroup, 1, K, L, itemsize, slot_bytes, particles);
+}
 void pathline_step_layout(int K, int L, int itemsize, int* slot_bytes,
                           int* particles) {
-  pathline_layout(K, L, itemsize, slot_bytes, particles);
+  column_layout(kPathGroup, 2, K, L, itemsize, slot_bytes, particles);
 }
 #endif
 
@@ -1527,9 +1601,10 @@ void pathline_step_layout(int K, int L, int itemsize, int* slot_bytes,
       const int32_t* vids, const T* table, int n, int K, int F, int L, T dt,   \
       int euler, T* new_pos, T* hvel, T* wvel, bool* ok, const bool* only,     \
       int32_t* layer, void* stream) {                                          \
-    return launch_streamline<T>(pos, depth_neg, nv, vids, table, n, K, F, L,   \
-                                dt, euler, new_pos, hvel, wvel, ok, only,      \
-                                layer, stream);                                \
+    return launch_streamline<T>({pos, depth_neg, nv, vids, table, n, K, F, L,  \
+                                 dt, euler, new_pos, hvel, wvel, ok, only,     \
+                                 layer},                                       \
+                                stream);                                       \
   }
 
 #define PATHLINE_ENTRY(T, tag)                                                 \

@@ -100,9 +100,10 @@ def _library() -> ctypes.CDLL:
                      "stage_kernel_a_max", "stage_kernel_w_max"):
             getattr(lib, name).argtypes = []
             getattr(lib, name).restype = I
-        lib.pathline_step_layout.argtypes = [I, I, I, ctypes.POINTER(I),
-                                               ctypes.POINTER(I)]
-        lib.pathline_step_layout.restype = None
+        for name in ("streamline_step_layout", "pathline_step_layout"):
+            getattr(lib, name).argtypes = [I, I, I, ctypes.POINTER(I),
+                                           ctypes.POINTER(I)]
+            getattr(lib, name).restype = None
         if (lib.stage_kernel_k_max(), lib.stage_kernel_l_max(),
                 lib.stage_kernel_a_max(), lib.stage_kernel_w_max()) \
                 != (K_MAX, L_MAX, A_MAX, W_MAX):
@@ -262,12 +263,14 @@ def fused_pathline_step(pos, depth_neg, nv, vids, table_f, table_b,
 fused_pathline_step.launches = 0
 
 
-def pathline_layout(n_vertices: int, n_layers: int, dtype) -> tuple[int, int]:
-    """K2's shared memory a particle (bytes) and particles a block, as its
-    launch sizes them for cells of ``n_vertices`` (K) vertices, ``n_layers``
-    layers and ``dtype``.  Builds the library at first use."""
+def layout(entry: str, n_vertices: int, n_layers: int,
+           dtype) -> tuple[int, int]:
+    """Shared memory a particle (bytes) and particles a block of K1
+    (``entry`` = "streamline") or K2 ("pathline"), as its launch sizes them
+    for cells of ``n_vertices`` (K) vertices, ``n_layers`` layers and
+    ``dtype``.  Builds the library at first use."""
     slot, particles = ctypes.c_int(), ctypes.c_int()
-    _library().pathline_step_layout(
+    getattr(_library(), f"{entry}_step_layout")(
         n_vertices, n_layers, torch.empty((), dtype=dtype).element_size(),
         ctypes.byref(slot), ctypes.byref(particles))
     return slot.value, particles.value

@@ -1,7 +1,7 @@
 """The CUDA kernels against their plain PyTorch versions, on a card: the
 fused step kernels (K1 streamline, K2 pathline, their layer-window forms K3
-and K4 with the masked K1/K2 repair of their miss lanes) and the row-gather
-probe K5.
+and K4 with the masked K1/K2 repair of their miss lanes, and K3 against K1
+bit for bit) and the row-gather probe K5.
 
 Imports no jax, so it runs where only torch is installed; the repo's
 conftest imports jax, so run it on the card with
@@ -194,14 +194,16 @@ def test_pathline_kernel_ceilings_raise(card, card_back):
                             n_attrs=3)
 
 
-# --- K2 at wide columns, with non-monotone profiles, and masked ------------
+# --- K1 and K2 at wide columns, with non-monotone profiles, and masked -----
 
 
-def _wide_inputs(kind, L, dev):
+def _wide_inputs(kind, L, dev, disturb=True):
     """Pathline inputs (A = 2) at L layers on the Voronoi mesh or on the
     gradient mesh (K = 11), with the ztop columns of every sixth vertex
     disturbed, so that the raw profiles of some lanes ascend somewhere (the
-    grouped clamp's slow path)."""
+    grouped clamp's slow path); with ``disturb`` false the columns stay
+    monotone, and so do the profiles of the lanes inside their cells.
+    K1 takes the front table's first table_width(L) columns."""
     rng = np.random.default_rng(L)
     mesh = mtt.synth.build_voronoi_mesh(500, n_layers=L) if kind == "voronoi" \
         else mtt.synth.build_gradient_mesh(2000, n_layers=L)
@@ -224,18 +226,111 @@ def _wide_inputs(kind, L, dev):
     tf, tb = (pack_vertex_table(mesh.vertex_xyz, s.vertex_ztop,
                                 s.vertex_velocity, s.vertex_vert_velocity,
                                 advect.stacked_vertex_attrs(s)) for s in sols)
-    bad = torch.as_tensor(rng.choice(len(tf), len(tf) // 6, replace=False),
-                          device=dev)
-    noise = torch.as_tensor(rng.uniform(-150.0, 150.0, (len(bad), L)),
-                            device=dev)
-    tf[bad, 3:3 + L] += noise
-    tb[bad, 3:3 + L] -= noise
+    if disturb:
+        bad = torch.as_tensor(rng.choice(len(tf), len(tf) // 6,
+                                         replace=False), device=dev)
+        noise = torch.as_tensor(rng.uniform(-150.0, 150.0, (len(bad), L)),
+                                device=dev)
+        tf[bad, 3:3 + L] += noise
+        tb[bad, 3:3 + L] -= noise
     pos = torch.as_tensor(seeds, device=dev)
     rows = tf[vids.long()]
     w = wachspress_weights(pos, rows[..., :3], nv)
     z = torch.einsum("nk,nkl->nl", w, rows[..., 3:3 + L])
-    assert bool((z[:, 1:] > z[:, :-1]).any(dim=1).any())  # some ascend
+    ascends = (z[:, 1:] > z[:, :-1]).any(dim=1)
+    # the out-of-cell lanes' weights may be negative
+    assert bool(ascends.any()) if disturb else not bool(ascends[16:].any())
     return pos, torch.as_tensor(dn, device=dev), nv, vids, tf, tb, L
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,L", [("voronoi", 80), ("voronoi", sk.L_MAX),
+                                    ("gradient", sk.L_MAX)])
+def test_kernel_wide_columns_match_plain_f64(card, kind, L):
+    """K1 where L is not a multiple of its lanes a particle, on K = 11
+    cells, with lanes whose raw profile is not monotone."""
+    _, _, dev = card
+    pos, dn, nv, vids, tf, _, L = _wide_inputs(kind, L, dev)
+    table = tf[:, :sk.table_width(L)].contiguous()
+    if kind == "gradient":
+        assert vids.shape[1] == 11
+    for euler in (False, True):
+        got = fused_streamline_step(pos, dn, nv, vids, table, L, DT,
+                                    euler=euler)
+        torch.cuda.synchronize()
+        want = fused_streamline_step_plain(pos, dn, nv, vids, table, L, DT,
+                                           euler=euler)
+        for a, b, tol in zip(got[:3], want[:3], (1e-6, 1e-10, 1e-12)):
+            torch.testing.assert_close(a, b, rtol=0, atol=tol, equal_nan=True)
+        assert torch.equal(got[3], want[3])
+        assert bool(got[3].any()) and not bool(got[3][:16].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flagged", ["none", "some", "all"])
+def test_kernel_masked_form_f64(card, flagged):
+    """K1's masked form (the streamline window path's repair launch): a
+    flagged lane's outputs are the unmasked step's bit for bit and its layer
+    the full column's at the start position; an unflagged lane's outputs
+    stay as they were."""
+    _, _, dev = card
+    pos, dn, nv, vids, tf, _, L = _wide_inputs("voronoi", 80, dev)
+    table = tf[:, :sk.table_width(L)].contiguous()
+    n, K = vids.shape
+    full = fused_streamline_step(pos, dn, nv, vids, table, L, DT)
+    only = {"none": torch.zeros(n, dtype=torch.bool, device=dev),
+            "some": torch.arange(n, device=dev) % 7 == 3,
+            "all": torch.ones(n, dtype=torch.bool, device=dev)}[flagged]
+    out = [torch.full_like(pos, 7.0), torch.full_like(pos, 7.0),
+           torch.full_like(dn, 7.0), torch.zeros_like(only),
+           torch.full((n,), -5, dtype=torch.int32, device=dev)]
+    err = sk._library().streamline_step_f64(
+        pos.data_ptr(), dn.data_ptr(), nv.data_ptr(), vids.data_ptr(),
+        table.data_ptr(), n, K, table.shape[1], L, DT, 0,
+        *(t.data_ptr() for t in out[:4]), only.data_ptr(), out[4].data_ptr(),
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    for a, b in zip(out[:4], full):
+        torch.testing.assert_close(a[only], b[only], rtol=0, atol=0,
+                                   equal_nan=True)
+    assert bool((out[0][~only] == 7.0).all()) and not bool(out[3][~only].any())
+    assert bool((out[2][~only] == 7.0).all()) and bool((out[4][~only] == -5).all())
+    rows = table[vids.long()]
+    layer = torch.clamp(start_layer(rows[..., 3:3 + L], pos, dn, nv,
+                                    rows[..., :3], False), 1, L - 1)
+    assert torch.equal(out[4][only], layer[only].to(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_window_streamline_step_bit_equal_to_kernel(card, dtype):
+    """Over monotone columns at the main path's L = 60 and W = 8, a lane
+    whose window step does not miss takes K1's step bit for bit (K3 rounds
+    as K1 does), and a miss lane K1's masked repair: the window path's
+    agreement with the full-column path over a whole day rests on it."""
+    _, _, dev = card
+    pos, dn, nv, vids, tf, _, L = _wide_inputs("voronoi", 60, dev,
+                                               disturb=False)
+    table = tf[:, :sk.table_width(L)].to(dtype).contiguous()
+    pos, dn = pos.to(dtype), dn.to(dtype)
+    rows = table[vids.long()]
+    s = window_starts(start_layer(rows[..., 3:3 + L], pos, dn, nv,
+                                  rows[..., :3], False), L, 8)
+    moved = torch.arange(len(s), device=dev) % 5 == 2    # these miss
+    s = torch.where(moved, torch.clamp(s + 8, 0, L - 8), s).to(
+        torch.int32).contiguous()
+    for euler in (False, True):
+        win = sk.fused_window_streamline_step(pos, dn, nv, vids, s, table, L,
+                                              8, DT, euler=euler)
+        full = fused_streamline_step(pos, dn, nv, vids, table, L, DT,
+                                     euler=euler)
+        torch.cuda.synchronize()
+        assert 0 < int(win[5].sum()) < len(nv) // 2
+        assert bool(win[3][~win[5]].any())
+        for a, b in zip(win[:4], full):
+            assert torch.equal(a.nan_to_num(1.5), b.nan_to_num(1.5))
 
 
 @pytest.mark.cuda
