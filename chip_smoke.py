@@ -52,6 +52,28 @@ success):
    time per device kernel (PERF.md, "Where the time goes"); on the window
    paths the masked K1 (K2) repair launches' device time apart from K3's
    (K4's).
+5. the user's front door on the card, on the slice's mesh:
+   5a. remap: run_remapping at 3601x1801 (the reference demo,
+       CLI/main.cpp:137, at the CLI's default 10 m) and 1201x601 (BASELINE
+       config 3, 20 m), float32 and float64, with the pathline front's two
+       attributes; the host KD query's seconds apart from the device's,
+       pixels per second; gates: the float64 image against the port's remap
+       core on CPU tensors over every 16th row of 1201x601 (NaN masks equal,
+       values within 1e-9 of the image's largest magnitude) and each float32
+       image against its float64 image (the demo size also under
+       torch.profiler: busy time, idle share, time per device kernel) (NaN masks and values within 1e-4 of
+       the largest magnitude on >= 99.9 % of pixels); run_fixed_layer at
+       layer 10 (1201x601) and run_regrid at latitude 20 deg (3601x60) at
+       float64 with the same row gate;
+   5b. the API: MOPS_Init("cuda", "fp32"), phase 2's own fields, then
+       MOPS_RunStreamLine over the day and MOPS_RunPathLine over the month,
+       whose last points must equal phase 2a's and 2c's bit for bit (same
+       dtype, kernels and inputs), with the launch counts checked and the
+       timing summary printed;
+   5c. the CLI in-process (--synthetic 20000 --layers 60 --remap-size
+       1201x601 --samples 31x31, a day at dt 120 s) into a temporary
+       directory: the raw-dict add_solution path on the card; every output
+       file present and the VTP holding n_lines x (n_records + 1) points.
 
 The line before the card's name lists each kernel with its launches on
 its main path, its time and its plain version's time at the slice shape,
@@ -63,8 +85,11 @@ where there is one, and ptxas's registers and spills.
 """
 
 import json
+import os
+import re
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -118,6 +143,29 @@ WINDOW = 8
 # rounding only, about 1.1e-16 times the square root of the values a thread
 # adds (about 6,000 at (a)) times their partial sums, far below 1e-12.
 K5_SUM_TOL = 1e-12
+# Phase 5's remap shapes (width, height, depth in m): the reference demo
+# (CLI/main.cpp:137) at the CLI's default depth, and BASELINE config 3
+# (scripts/baseline_configs.py:10).  The float64 image is held to the remap
+# core on CPU tensors over every GATE_ROW_STRIDE-th row within
+# REMAP_F64_TOL of the image's largest magnitude (the same float64 math in
+# another summation order); the float32 image to the float64 one within
+# REMAP_F32_TOL of it (a Wachspress sum at float32 loses ~1e3 epsilon, as in
+# the kernel check) with NaN masks and values agreeing on REMAP_F32_SHARE
+# of pixels (a pixel on a cell edge or a layer interface may flip).
+REMAP_SHAPES = ((3601, 1801, 10.0), (1201, 601, 20.0))
+GATE_ROW_STRIDE = 16
+REMAP_F64_TOL = 1e-9
+REMAP_F32_TOL = 1e-4
+REMAP_F32_SHARE = 0.999
+# run_fixed_layer at FIXED_LAYER on config 3's image and run_regrid at
+# REGRID_LAT, REGRID_WIDTH columns by the mesh's layers, both at float64.
+FIXED_LAYER = 10
+REGRID_LAT = 20.0
+REGRID_WIDTH = 3601
+# Phase 5c's CLI run.
+CLI_ARGS = ["--synthetic", "20000", "--layers", "60", "--remap-size",
+            "1201x601", "--samples", "31x31", "--dt", "120", "--duration",
+            "86400"]
 # Share of alive lanes' pathline attribute records that must be non-zero.
 # A record is zero where every stage of its step failed, which at ocean
 # speeds happens to a particle that relocation leaves outside its cell's
@@ -246,6 +294,57 @@ def step_bound(mesh, sols, seeds, cells, depths, n_attrs, pathline, tag,
             else "operations", nbytes, ops)
 
 
+def remap_row_gate(label, imgs, cpu_imgs, rows):
+    """The card's float64 images at ``rows`` against the remap core's on CPU
+    tensors (flattened rows): NaN masks equal, values within REMAP_F64_TOL
+    of each card image's largest magnitude.  Returns the largest error
+    relative to that magnitude."""
+    import numpy as np
+    worst = 0.0
+    for k, (img, ref) in enumerate(zip(imgs, cpu_imgs)):
+        got = img[rows].reshape(ref.shape)
+        if not np.array_equal(np.isnan(got), np.isnan(ref)):
+            fail(f"remap row gate {label} image {k}: NaN masks differ "
+                 f"({int((np.isnan(got) != np.isnan(ref)).sum())} values)")
+        finite = np.isfinite(ref)
+        if not finite.any():
+            fail(f"remap row gate {label} image {k}: no finite pixel")
+        scale = float(np.nanmax(np.abs(img)))
+        rel = float(np.abs(got - ref)[finite].max()) / scale
+        log(f"  row gate {label} image {k}: {ref.shape[0]} pixels on "
+            f"{len(rows)} rows, {100 * finite.mean():.3f}% finite values, "
+            f"max |card - cpu| {rel:.3e} of the largest magnitude "
+            f"{scale:.4e} (tol {REMAP_F64_TOL:.0e}), NaN masks equal")
+        if not rel <= REMAP_F64_TOL:
+            fail(f"remap row gate {label} image {k}")
+        worst = max(worst, rel)
+    return worst
+
+
+def remap_f32_gate(label, imgs32, imgs64):
+    """Each float32 image against its float64 image: the share of pixels
+    whose NaN masks agree, and of common finite pixels within REMAP_F32_TOL
+    of the float64 image's largest magnitude; both >= REMAP_F32_SHARE."""
+    import numpy as np
+    shares = []
+    for k, (a, b) in enumerate(zip(imgs32, imgs64)):
+        na, nb = np.isnan(a).any(-1), np.isnan(b).any(-1)
+        mask_share = float((na == nb).mean())
+        both = ~na & ~nb
+        scale = float(np.nanmax(np.abs(b)))
+        err = np.abs(a.astype(np.float64) - b).max(-1)[both]
+        value_share = float((err <= REMAP_F32_TOL * scale).mean())
+        log(f"  f32 vs f64 {label} image {k}: NaN masks agree on "
+            f"{100 * mask_share:.4f}% of pixels, values within "
+            f"{REMAP_F32_TOL:.0e} of {scale:.4e} on {100 * value_share:.4f}% "
+            f"of {int(both.sum())} common finite pixels (max "
+            f"{float(err.max()) / scale:.3e})")
+        if mask_share < REMAP_F32_SHARE or value_share < REMAP_F32_SHARE:
+            fail(f"remap f32 gate {label} image {k}")
+        shares.append((mask_share, value_share))
+    return shares
+
+
 def compare_step(got, want, real, dt, flags=(3,), attr=None):
     """Kernel vs plain outputs of one step on identical inputs.  ``got`` and
     ``want`` are the wrappers' tuples: new_pos, hvel, wvel first; ``flags``
@@ -295,6 +394,196 @@ def compare_step(got, want, real, dt, flags=(3,), attr=None):
         outliers = 0
         passed = flips == 0 and all(e <= t for e, t in zip(errs, tol))
     return errs, tol, flips, outliers, passed, note
+
+
+def front_door(dev, mesh_h, sols, seeds, cfg, pcfg, last_points, kernels,
+               reset_counts, timed, times, smi):
+    """Phase 5: remap, the API and the CLI on ``dev`` at the slice's shape.
+    ``sols`` maps (name, dtype) to phase 0's preprocessed fields,
+    ``last_points`` phase 2's window paths' last points ("k3", "k4");
+    ``kernels`` the launch-counted wrappers and ``reset_counts`` their
+    reset.  Returns the remap and API summaries."""
+    import numpy as np
+    import torch
+
+    import mops_tpu_torch as mtt
+    from mops_tpu_torch import advect, api, cli
+    from mops_tpu_torch import remap as rm
+    f32, f64 = torch.float32, torch.float64
+    L = sols["front", f64].n_layers
+    t_phase5 = time.perf_counter()
+    log(f"[phase 5a] remap on the slice mesh at {REMAP_SHAPES}, f32 and f64, "
+        f"with the pathline front's attributes")
+    search = mtt.CellSearch(mesh_h)
+    fields = {real: mtt.Field(mesh_h, sols["front", real], device=dev,
+                              dtype=real, _search=search)
+              for real in (f32, f64)}
+    sol_cpu = sols["front", f64].to("cpu")
+    attrs_cpu = advect.stacked_vertex_attrs(sol_cpu)
+    remap_summary = {}
+
+    def gate_rows(w, h, pix, pcells, stride=GATE_ROW_STRIDE):
+        rows = np.arange(0, h, stride)
+        idx = (rows[:, None] * w + np.arange(w)).ravel()
+        return rows, torch.from_numpy(pix[idx]), torch.from_numpy(pcells[idx])
+
+    def kd_query(label, vis, kind, make_pixels):
+        t = time.perf_counter()
+        out = rm._pixel_cells(fields[f64], vis, kind, make_pixels)
+        times[f"5a {label} host KD query"] = time.perf_counter() - t
+        log(f"  {label} host KD query ({len(out[1])} pixels, cKDTree): "
+            f"{times[f'5a {label} host KD query']:.3f} s")
+        return out
+
+    for w, h, depth in REMAP_SHAPES:
+        vis = mtt.VisualizationSettings(image_width=w, image_height=h,
+                                        fixed_depth=depth)
+        label = f"remap {w}x{h} at {depth:g} m"
+        pix, pcells = kd_query(label, vis, "remap",
+                               lambda: rm._pixel_positions(vis))
+        imgs, row = {}, {"pixels": w * h,
+                         "kd_query_s": times[f"5a {label} host KD query"]}
+        for real, tag in ((f32, "f32"), (f64, "f64")):
+            first = timed(f"5a {label} {tag} first call",
+                          lambda: rm.run_remapping(fields[real], vis))
+            imgs[real] = timed(f"5a {label} {tag}",
+                               lambda: rm.run_remapping(fields[real], vis))
+            dev_s = times[f"5a {label} {tag}"]
+            if len(first) != 2 or any(
+                    im.shape != (h, w, 3) for im in imgs[real]) or not all(
+                    np.array_equal(a, b, equal_nan=True)
+                    for a, b in zip(first, imgs[real])):
+                fail(f"{label} {tag}: shapes or repeat call")
+            finite = float(np.isfinite(imgs[real][0][..., 2]).mean())
+            log(f"  {label} {tag}: device {dev_s:.3f} s (first call "
+                f"{times[f'5a {label} {tag} first call']:.3f} s, with the "
+                f"upload), {w * h / dev_s:.6e} px/s; {100 * finite:.3f}% "
+                f"ocean pixels ({smi})")
+            if not 0.0 < finite:
+                fail(f"{label} {tag}: no ocean pixel")
+            row[tag] = {"device_s": dev_s, "px_per_s": w * h / dev_s,
+                        "first_call_s": times[f"5a {label} {tag} first call"],
+                        "ocean_share": finite}
+            if (w, h) == REMAP_SHAPES[0][:2]:
+                busy, window, per_name, gap = device_breakdown(
+                    lambda: rm.run_remapping(fields[real], vis))
+                top = sorted(per_name.items(), key=lambda kv: -kv[1])[:6]
+                log(f"  {label} {tag} under torch.profiler: device busy "
+                    f"{busy:.3f} ms of a {window:.3f} ms window, idle share "
+                    f"{100 * (1 - busy / window):.2f}%, longest gap "
+                    f"{gap[0]:.3f} ms ({smi})")
+                for name, ms in top:
+                    log(f"    {ms:9.3f} ms {100 * ms / busy:6.2f}%  "
+                        f"{name[:90]}")
+                row[tag]["profile"] = {
+                    "busy_ms": busy, "window_ms": window,
+                    "top": [[nm[:90], ms] for nm, ms in top]}
+        if (w, h) == REMAP_SHAPES[-1][:2]:
+            rows, pos, cell = gate_rows(w, h, pix, pcells)
+            vel, att = rm._fixed_depth_core(
+                mesh_h, sol_cpu, attrs_cpu, pos, cell,
+                torch.full((len(cell),), -depth, dtype=f64),
+                depth_accurate=False, use_attrs=True)
+            row["f64_vs_cpu_rows"] = remap_row_gate(
+                label, imgs[f64], [vel.numpy(), att.numpy()], rows)
+        row["f32_vs_f64"] = remap_f32_gate(label, imgs[f32], imgs[f64])
+        remap_summary[f"{w}x{h}"] = row
+        del imgs, first
+
+    w, h, _ = REMAP_SHAPES[-1]
+    vis = mtt.VisualizationSettings(image_width=w, image_height=h,
+                                    fixed_layer=FIXED_LAYER)
+    label = f"5a fixed layer {FIXED_LAYER} {w}x{h} f64"
+    img = timed(label, lambda: rm.run_fixed_layer(fields[f64], vis))
+    rows, pos, cell = gate_rows(w, h, *rm._pixel_cells(
+        fields[f64], vis, "remap", lambda: rm._pixel_positions(vis)))
+    remap_summary["fixed_layer"] = {
+        "device_s": times[label],
+        "f64_vs_cpu_rows": remap_row_gate(
+            "fixed layer", [img], [rm._fixed_layer_batch(
+                mesh_h, sol_cpu, pos, cell, FIXED_LAYER).numpy()], rows)}
+    w = REGRID_WIDTH
+    vis = mtt.VisualizationSettings(image_width=w, image_height=L,
+                                    fixed_latitude=REGRID_LAT)
+    label = f"regrid {w}x{L} at {REGRID_LAT:g} deg"
+    pix, pcells = kd_query(label, vis, "regrid",
+                           lambda: rm._regrid_positions(vis, L))
+    img = timed(f"5a {label} f64", lambda: rm.run_regrid(fields[f64], vis))
+    rows, pos, cell = gate_rows(w, L, pix, pcells)
+    dn = torch.from_numpy(np.repeat(rm.regrid_depths(mesh_h, L)[rows], w))
+    remap_summary["regrid"] = {
+        "device_s": times[f"5a {label} f64"],
+        "f64_vs_cpu_rows": remap_row_gate(
+            "regrid", [img], [rm._fixed_lat_batch(
+                mesh_h, sol_cpu, pos, cell, dn).numpy()], rows)}
+    del fields, sol_cpu, attrs_cpu, img
+
+    log("[phase 5b] the API on the card: MOPS_Init('cuda', 'fp32') with "
+        "phase 2's fields; streamline day and pathline month")
+    api.MOPS_Init(dev.type, "fp32")
+    api.MOPS_ResetTiming()
+    api.MOPS_Begin()
+    api.MOPS_AddGridMesh(mesh_h)
+    for sol_id, key in ((1, "stream"), (2, "front"), (3, "back")):
+        api.MOPS_AddAttribute(sol_id, sols[key, f32])
+    api.MOPS_End()
+    api_summary = {}
+    for label, key, ids, run, run_cfg in (
+            ("MOPS_RunStreamLine", "k3", (1,), api.MOPS_RunStreamLine, cfg),
+            ("MOPS_RunPathLine", "k4", (2, 3), api.MOPS_RunPathLine, pcfg)):
+        api.MOPS_ActiveAttribute(*ids)
+        pts = seeds.copy()
+        reset_counts()
+        lines = timed(f"5b {label}", lambda: run(run_cfg, pts))
+        counts = {k: fn.launches for k, fn in kernels.items()}
+        got = np.stack([line.last_point for line in lines])
+        equal = bool(np.array_equal(got, last_points[key]))
+        log(f"  {label}: {len(lines)} lines, launches {counts}; last points "
+            f"bit-equal to phase 2's {key} path: {equal} ({smi})")
+        if counts[key] != run_cfg.n_steps or sum(counts.values()) \
+                != counts[key]:
+            fail(f"{label}: launch counts {counts}")
+        if not equal:
+            diff = np.linalg.norm(got - last_points[key], axis=1)
+            fail(f"{label}: last points differ from phase 2's on "
+                 f"{int((diff > 0).sum())} lines (max {diff.max():.3e} m)")
+        if label == "MOPS_RunPathLine" and not np.array_equal(pts, got):
+            fail("MOPS_RunPathLine did not advance the seeds in place")
+        api_summary[label] = {"seconds": times[f"5b {label}"],
+                              "launches": counts[key]}
+        del lines
+    api.MOPS_PrintTimingSummary()
+    api_summary["timing_ms"] = {
+        c: api.MOPS_GetCategoryTime(c) for c in ("Preprocessing", "GPUKernel")}
+
+    log(f"[phase 5c] the CLI in-process: {' '.join(CLI_ARGS)}")
+    with tempfile.TemporaryDirectory() as out:
+        rc = timed("5c cli", lambda: cli.main(CLI_ARGS + ["--out", out]))
+        names = ("remap_east.png", "remap_north.png", "remap_speed.png",
+                 "remap.vti", "streamline.vtp", "streamline.txt")
+        sizes = {nm: os.path.getsize(os.path.join(out, nm))
+                 for nm in names if os.path.exists(os.path.join(out, nm))}
+        with open(os.path.join(out, "streamline.vtp")) as f:
+            head = f.read(400)
+    found = re.search(r'NumberOfPoints="(\d+)" NumberOfLines="(\d+)"', head)
+    n_pts, n_lines = map(int, found.groups()) if found else (0, 0)
+    args = dict(zip(CLI_ARGS[::2], CLI_ARGS[1::2]))
+    n_rec = mtt.TrajectorySettings(
+        delta_t=int(args["--dt"]), simulation_duration=int(args["--duration"]),
+        record_t=60).n_records                        # the CLI's --record
+    n_lat, n_lon = map(int, args["--samples"].split("x"))
+    n_seeds = len(mtt.seeding.generate_sample_points(mtt.SamplingSettings(
+        sample_range=(n_lat, n_lon), lat_range=(20.0, 50.0),
+        lon_range=(-80.0, -50.0))))                   # the CLI's --box
+    log(f"  rc {rc}; files {sizes}; VTP {n_pts} points, {n_lines} lines "
+        f"(expected {n_seeds} x {n_rec + 1} = {n_seeds * (n_rec + 1)})")
+    if rc != 0 or len(sizes) != len(names) or min(sizes.values()) == 0 \
+            or n_lines != n_seeds or n_pts != n_lines * (n_rec + 1):
+        fail("CLI outputs")
+    times["phase 5"] = time.perf_counter() - t_phase5
+    log(f"  phase 5: {times['phase 5']:.3f} s")
+
+    return remap_summary, api_summary
 
 
 def main():
@@ -676,6 +965,7 @@ def main():
         fail_mode=mtt.FailMode.ZERO)
     summary = {}
     finals = {}
+    last_points = {}
     for label, key, pathline, windowed in (
             ("2a streamline, layer window", "k3", False, True),
             ("2b streamline, full column", "k1", False, False),
@@ -754,6 +1044,7 @@ def main():
             summary[key]["attr_nonzero"] = nonzero
             del att
         finals[key] = final.cpu().numpy()
+        last_points[key] = np.stack([line.last_point for line in lines])
         del raw_traj, lines
     for a, b in (("k3", "k1"), ("k4", "k2")):
         err = np.linalg.norm(finals[a] - finals[b], axis=1)
@@ -880,6 +1171,11 @@ def main():
                 rows["k2" if pathline else "k1"].setdefault(
                     "repair_ms_per_step", {})[tag] = r_ms / PROFILE_STEPS
 
+    # ---- phase 5: remap, the API and the CLI on the card ----------------
+    remap_summary, api_summary = front_door(
+        dev, mesh_h, sols, seeds, cfg, pcfg, last_points, kernels,
+        reset_counts, timed, times, smi)
+
     # ---- the kernels' bounds at the main paths' start inputs -------------
     bounds = {}
     for key, pathline, n_attrs, n_window in (
@@ -898,10 +1194,11 @@ def main():
                          bound_by=bounds[f"{key} f32"][1], library_ms=None)
 
     log(json.dumps({"phase_seconds": times, "build_seconds": build_s,
-                    "main_paths": summary,
+                    "main_paths": summary, "remap": remap_summary,
+                    "api": api_summary,
                     "bounds_ms": {k: v[0] for k, v in bounds.items()},
                     "profile": profile_rows}))
-    replaces = {"k1": "mops_tpu/pallas/stage_kernel.py:49",
+    replaces = {"k1": "mops_tpu/pallas/stage_kernel.py:479",
                 "k2": "mops_tpu/pallas/stage_kernel.py:502",
                 "k3": "mops_tpu/pallas/window_kernel.py:509",
                 "k4": "mops_tpu/pallas/window_kernel.py:544",

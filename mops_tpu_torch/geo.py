@@ -13,6 +13,27 @@ import torch
 from .config import EARTH_RADIUS
 
 
+def pixel_to_latlon_deg(i, j, width, height, min_lat, max_lat, min_lon,
+                        max_lon):
+    """Image pixel (row i, col j) -> (lat, lon) degrees.
+
+    Mirrors GeoConverter::convertPixelToLatLonToDegrees
+    (reference src/Utils/GeoConverter.hpp:35-58): row 0 is max_lat, and the
+    divisor is the full height/width (not height-1), matching the
+    reference's half-open pixel grid.
+    """
+    lat = max_lat - (i / height) * (max_lat - min_lat)
+    lon = (j / width) * (max_lon - min_lon) + min_lon
+    return lat, lon
+
+
+def pixel_to_latlon_rad(i: torch.Tensor, j: torch.Tensor, width, height,
+                        min_lat, max_lat, min_lon, max_lon):
+    lat, lon = pixel_to_latlon_deg(i, j, width, height, min_lat, max_lat,
+                                   min_lon, max_lon)
+    return torch.deg2rad(lat), torch.deg2rad(lon)
+
+
 def latlon_rad_to_xyz(lat: torch.Tensor, lon: torch.Tensor,
                       r: float = EARTH_RADIUS) -> torch.Tensor:
     """(lat, lon) radians -> XYZ (reference GeoConverter.hpp:107-125)."""
@@ -44,6 +65,16 @@ def _enu_coeffs(p: torch.Tensor):
     slat = z / safe_rxyz
     clat = rxy / safe_rxyz
     return slon, clon, slat, clat, at_pole
+
+
+def xyz_velocity_to_enu(p: torch.Tensor, vel: torch.Tensor):
+    """XYZ velocity -> (zonal, meridional) (reference GeoConverter.hpp:200-223)."""
+    slon, clon, slat, clat, at_pole = _enu_coeffs(p)
+    vx, vy, vz = vel[..., 0], vel[..., 1], vel[..., 2]
+    uzon = -slon * vx + clon * vy
+    umer = -slat * (clon * vx + slon * vy) + clat * vz
+    zero = torch.zeros_like(uzon)
+    return torch.where(at_pole, zero, uzon), torch.where(at_pole, zero, umer)
 
 
 def enu_velocity_to_xyz(p: torch.Tensor, uzon: torch.Tensor,

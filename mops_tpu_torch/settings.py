@@ -1,7 +1,8 @@
 """Run-configuration dataclasses (jax-free copy of mops_tpu.settings).
 
-Reference: src/Core/MPASOVisualizer.h:20-103 (SamplingSettings,
-TrajectorySettings, TrajectoryLine) and the time-unit macros (:83-88).
+Reference: src/Core/MPASOVisualizer.h:20-103 (VisualizationSettings,
+SamplingSettings, TrajectorySettings, TrajectoryLine) and the time-unit
+macros (:83-88).
 """
 
 from __future__ import annotations
@@ -44,6 +45,22 @@ class FailMode(enum.Enum):
     ZERO = "zero"
 
 
+class VisualizeType(enum.Enum):
+    FIXED_LAYER = "fixed_layer"
+    FIXED_DEPTH = "fixed_depth"
+
+
+class SaveType(enum.Enum):
+    VTI = "vti"
+    PNG = "png"
+    NONE = "none"
+
+
+class PositionType(enum.Enum):
+    CENTER = "center"
+    VERTEX = "vertex"
+
+
 @dataclasses.dataclass
 class TrajectorySettings:
     """Mirrors reference TrajectorySettings (src/Core/MPASOVisualizer.h:90-103).
@@ -77,6 +94,23 @@ class TrajectorySettings:
                 and len(self.particle_depths) == n_particles):
             return np.asarray(self.particle_depths, dtype=np.float32)
         return np.full(n_particles, self.depth, dtype=np.float32)
+
+
+@dataclasses.dataclass
+class VisualizationSettings:
+    """Mirrors reference VisualizationSettings (src/Core/MPASOVisualizer.h:20-42)."""
+
+    image_width: int = 360
+    image_height: int = 180
+    lat_range: Tuple[float, float] = (-90.0, 90.0)
+    lon_range: Tuple[float, float] = (-180.0, 180.0)
+    depth_range: Tuple[float, float] = (0.0, 5000.0)
+    fixed_latitude: float = 0.0
+    fixed_depth: float = 10.0
+    fixed_layer: int = 0
+    visualize_type: VisualizeType = VisualizeType.FIXED_DEPTH
+    save_type: SaveType = SaveType.NONE
+    time_step: int = 0
 
 
 @dataclasses.dataclass

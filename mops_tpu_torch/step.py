@@ -64,6 +64,17 @@ def _advect_on_sphere(pos: torch.Tensor, vel: torch.Tensor, dt):
     return torch.where(degenerate[..., None], pos, rotated)
 
 
+def _weighted_vertex_value(table: torch.Tensor, vids: torch.Tensor,
+                           layer: torch.Tensor,
+                           weights: torch.Tensor) -> torch.Tensor:
+    """sum_k w_k * table[vid_k, layer] for (nV, L[, 3]) tables
+    (reference SYCLKernel::CalcVelocity / CalcAttribute)."""
+    gathered = table[vids.long(), layer.long()[:, None]]   # (N, K[, 3])
+    if gathered.ndim == 3:
+        return torch.einsum("nk,nkd->nd", weights, gathered)
+    return torch.einsum("nk,nk->n", weights, gathered)
+
+
 # ---------------------------------------------------------------------------
 # vertical column machinery
 # ---------------------------------------------------------------------------

@@ -537,3 +537,78 @@ def test_row_gather_raises_on_bad_ids(card):
     ids[5] = 10
     with pytest.raises(ValueError, match="outside"):
         rg.row_gather_probe(table, ids, 16)
+
+
+# --- remap and the API on the card -------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["depth", "layer", "regrid"])
+def test_remap_on_the_card_matches_cpu_f64(card, entry):
+    """chip_smoke.py's remap row gate at a small size: the card's float64
+    images against the same remap on CPU tensors, NaN masks equal and
+    values within 1e-9 of the image's largest magnitude."""
+    mesh, sol, dev = card
+    search = mtt.CellSearch(mesh)
+    on_card = mtt.Field(mesh, sol, device="cuda", _search=search)
+    on_cpu = mtt.Field(mesh.to("cpu"), sol.to("cpu"), device="cpu",
+                       _search=search)
+    if entry == "depth":
+        def run(f):
+            return mtt.remap.run_remapping(f, mtt.VisualizationSettings(
+                image_width=96, image_height=48, fixed_depth=300.0), chunk=999)
+    elif entry == "layer":
+        def run(f):
+            return [mtt.remap.run_fixed_layer(f, mtt.VisualizationSettings(
+                image_width=96, image_height=48, fixed_layer=3))]
+    else:
+        def run(f):
+            return [mtt.remap.run_regrid(f, mtt.VisualizationSettings(
+                image_width=96, image_height=6, fixed_latitude=20.0))]
+    for got, want in zip(run(on_card), run(on_cpu)):
+        np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+        assert np.isfinite(want).any()
+        np.testing.assert_allclose(got, want, rtol=0,
+                                   atol=1e-9 * np.nanmax(np.abs(want)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pathline", [False, True],
+                         ids=["streamline", "pathline"])
+def test_api_lines_equal_direct_run(card, card_back, pathline):
+    """MOPSApp on the card gives the lines of a direct run_advection on the
+    same fields, seeds and settings, bit for bit (the same kernels)."""
+    mesh, sol, dev = card
+    app = mtt.MOPSApp()
+    app.init("cuda", "fp64")
+    app.begin()
+    app.add_grid(mesh)
+    app.add_solution(1, sol)
+    app.add_solution(2, card_back)
+    app.end()
+    app.active_attribute(*((1, 2) if pathline else (1,)))
+    seeds = mtt.seeding.generate_sample_points(mtt.SamplingSettings(
+        sample_range=(9, 9), lat_range=(-60, 60), lon_range=(-170, 170)))
+    cfg = mtt.TrajectorySettings(
+        delta_t=600, simulation_duration=600 * 12, record_t=1200,
+        particle_depths=np.linspace(10.0, 3900.0, len(seeds)).astype(
+            np.float32), fail_mode=mtt.FailMode.ZERO)
+    fn = sk.fused_window_pathline_step if pathline \
+        else sk.fused_window_streamline_step
+    before = fn.launches
+    pts = seeds.copy()
+    lines = (app.run_pathline if pathline else app.run_streamline)(cfg, pts)
+    assert fn.launches == before + cfg.n_steps
+    back = card_back if pathline else None
+    raw = mtt.run_advection(mesh, sol, seeds, mtt.CellSearch(mesh).query(seeds),
+                            cfg, back=back)
+    want = mtt.finalize_trajectories(
+        seeds, raw.points.cpu().numpy(), raw.velocities.cpu().numpy(), cfg,
+        attrs=raw.attrs.cpu().numpy() if pathline else None,
+        with_attrs=pathline)
+    for a, b in zip(lines, want):
+        np.testing.assert_array_equal(a.points, b.points)
+        np.testing.assert_array_equal(a.velocity, b.velocity)
+    if pathline:
+        np.testing.assert_array_equal(pts, np.stack([l.last_point
+                                                     for l in want]))
