@@ -75,6 +75,29 @@ success):
        directory: the raw-dict add_solution path on the card; every output
        file present and the VTP holding n_lines x (n_records + 1) points.
 
+6. the multi-device engines (mops_tpu_torch.parallel), every shard on
+   the one card, each sub-phase driven with the launch counts set to 0
+   just before it and read just after:
+   6a. run_advection_sharded, 4 shards, the streamline day through the
+       window path: positions and records bit-equal to phase 2a's, 4x its
+       K3 and repair launches; MOPS_Init with more devices than cards
+       raises;
+   6b. run_advection_migrating, 8 shards, the day at migrate_every 1 and 8
+       through the window path and at 8 through K1: particles migrate, none
+       is dropped or duplicated, the reassembled points, velocities, final
+       positions and depths bit-equal to phase 2a's (2b's for K1; the
+       share of final positions within 100 m printed), pool occupancy; the
+       exchange's share of a step under torch.profiler over 30 steps;
+   6c. the pathline month migrating (8 shards, migrate_every 8, K4 and its
+       K2 repair): its trajectories and attribute records bit-equal to
+       phase 2c's, attribute records non-zero;
+   6d. send_capacity=1 on 64 seeds just west of a sector boundary: every
+       lost particle counted, the survivors' final positions those of the
+       single-device run;
+   6e. BASELINE config 5 at its own shape (scripts/baseline_configs.py:
+       158-186): 20,000 cells, L20, 200,000 seeds, 100 steps of 3600 s,
+       migrate_every 8, 8 shards: particle-RK4-steps/s and dropped.
+
 The line before the card's name lists each kernel with its launches on
 its main path, its time and its plain version's time at the slice shape,
 its bound: the larger of the bytes the step must move (each input read
@@ -172,6 +195,11 @@ CLI_ARGS = ["--synthetic", "20000", "--layers", "60", "--remap-size",
 # polygon (it then stays there under FailMode.ZERO): about 1 % of lanes by
 # the month's end.
 ATTR_NONZERO = 0.98
+# Phase 6's budget in seconds (logged beside its time), and BASELINE
+# config 5's shape (scripts/baseline_configs.py:158-186): cells, layers,
+# seeds, steps of 3600 s.
+PHASE6_BUDGET = 300
+CONFIG5 = (20_000, 20, 200_000, 100)
 
 
 def fail(msg):
@@ -586,6 +614,335 @@ def front_door(dev, mesh_h, sols, seeds, cfg, pcfg, last_points, kernels,
     return remap_summary, api_summary
 
 
+def exchange_profile(run, smi):
+    """Run ``run`` (a migrating run) once to warm up, then under
+    torch.profiler with each exchange annotated: the exchanges' device time
+    (the kernels their ops launched) against the device's busy time, and
+    their host time against the profiled window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mops_tpu_torch.parallel import migrate
+    exchange = migrate._exchange
+
+    def annotated(*args):
+        with record_function("migration exchange"):
+            return exchange(*args)
+    migrate._exchange = annotated
+    try:
+        run()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+    finally:
+        migrate._exchange = exchange
+    name = "migration exchange"
+    events = prof.events()
+    # the annotation shows on both timelines: its host range (whose
+    # device_time_total sums the kernels its ops launched) and a device
+    # range, which is no kernel and stays out of the busy time
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA and e.name != name)
+    if not spans:
+        fail("torch.profiler saw no device activity")
+    busy, end = 0.0, spans[0][0]
+    for start, stop in spans:
+        busy += max(0.0, stop - max(start, end))
+        end = max(end, stop)
+    ex = [e for e in events if e.name == name
+          and e.device_type == DeviceType.CPU]
+    if not ex:
+        fail("the profiler saw no exchange")
+    ex_dev = sum(e.device_time_total for e in ex) / 1e3
+    ex_host = sum(e.cpu_time_total for e in ex) / 1e3
+    busy, window = busy / 1e3, (end - spans[0][0]) / 1e3
+    log(f"  exchange under torch.profiler, {len(ex)} exchanges: its kernels "
+        f"{ex_dev:.3f} ms of {busy:.3f} ms busy ({100 * ex_dev / busy:.2f}%),"
+        f" {ex_dev / len(ex):.4f} ms an exchange; host {ex_host:.3f} ms of a "
+        f"{window:.3f} ms window ({100 * ex_host / window:.2f}%); idle share "
+        f"{100 * (1 - busy / window):.2f}% ({smi})")
+    if ex_dev <= 0.0:
+        fail("the profiler saw no device time in the exchange")
+    return {"device_ms": ex_dev, "busy_ms": busy, "host_ms": ex_host,
+            "window_ms": window, "per_exchange_ms": ex_dev / len(ex),
+            "exchanges": len(ex)}
+
+
+def multi_device(dev, mesh_h, sols, seeds, cells, depths, cfg, pcfg, refs,
+                 summary, kernels, reset_counts, timed, times, smi):
+    """Phase 6: the sharded and migrating engines on the card, their shards
+    all on ``dev``.  ``refs`` holds phase 2's RawTrajectories by kernel
+    (k3: 2a, k1: 2b, k4: 2c), ``summary`` phase 2's rates.  Returns the
+    phase's summary (launches per sub-phase, rates, shares)."""
+    import numpy as np
+    import torch
+
+    import mops_tpu_torch as mtt
+    from mops_tpu_torch import api
+    from mops_tpu_torch.parallel import (partition_cells, reassemble,
+                                         run_advection_migrating,
+                                         run_advection_sharded)
+    f32 = torch.float32
+    n = len(seeds)
+    mesh32 = mesh_h.to(dev, f32)
+    t_phase6 = time.perf_counter()
+    out = {}
+
+    out["peak_gb"] = {}
+
+    def begin():
+        reset_counts()
+        torch.cuda.reset_peak_memory_stats(dev)
+
+    def counts(label):
+        """The sub-phase's launches; logs its peak device memory."""
+        c = {k: fn.launches for k, fn in kernels.items()}
+        c.update({f"{k} repair": kernels[k].repair_launches
+                  for k in ("k3", "k4")})
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        out["peak_gb"][label] = peak
+        log(f"  {label}: peak device memory {peak:.3f} GB")
+        return c
+
+    def expect(label, got, want):
+        """Every kernel's launches in ``got`` as ``want`` says (0 where
+        ``want`` has no entry)."""
+        bad = {k: v for k, v in got.items() if v != want.get(k, 0)}
+        if bad:
+            fail(f"{label}: launch counts {got}, expected {want}")
+
+    def rate_line(label, seconds, steps, ref_key):
+        rate = n * steps / seconds
+        log(f"  {label}: {seconds:.3f} s, {rate:.6e} particle-RK4-steps/s "
+            f"(phase 2 {ref_key}: "
+            f"{summary[ref_key]['particle_rk4_steps_per_s']:.6e}) ({smi})")
+        return rate
+
+    def held(label, got, ref_key):
+        """reassemble's trajectories ``got`` against phase 2's ``ref_key``
+        run: points, velocities, attributes, final positions and depths
+        bit for bit.  Returns the shares of final positions within 100 m
+        and bit-equal, which it logs."""
+        points, vels, attrs, fpos, fdepth = got
+        ref = refs[ref_key]
+        err = (fpos.double() - ref.final_position.double()).norm(dim=1)
+        share = float((err <= 100.0).double().mean())
+        bits = float((fpos == ref.final_position).all(dim=1).double().mean())
+        equal = {"points": torch.equal(points, ref.points),
+                 "velocities": torch.equal(vels, ref.velocities),
+                 "final positions": torch.equal(fpos, ref.final_position),
+                 "final depths": torch.equal(fdepth, ref.final_depth)}
+        if ref.attrs is not None:
+            equal["attributes"] = torch.equal(attrs, ref.attrs)
+        log(f"  {label}: bit-equal to phase 2's {ref_key} run: {equal}; "
+            f"{100 * share:.3f}% of final positions within 100 m, "
+            f"{100 * bits:.3f}% bit-equal, median difference "
+            f"{float(err.median()):.3e} m")
+        if not all(equal.values()):
+            fail(f"{label}: the trajectories differ from phase 2's")
+        return share, bits
+
+    def migration_checks(label, res, n_expect=n):
+        fids = res.final_ids.cpu().numpy()
+        ids = fids[fids >= 0]
+        cap = fids.shape[1]
+        occ = (fids >= 0).sum(axis=1) / cap
+        dropped = int(res.dropped.sum())
+        migrated = res.migrated.cpu().numpy()
+        log(f"  {label}: migrated {int(migrated.sum())} (per shard "
+            f"{migrated.tolist()}), dropped {dropped}, window misses "
+            f"{int(res.window_misses.sum())}; pool occupancy min / median / "
+            f"max {occ.min():.4f} / {float(np.median(occ)):.4f} / "
+            f"{occ.max():.4f} of {cap} slots")
+        if migrated.sum() == 0 or dropped != 0 or len(ids) != n_expect \
+                or len(np.unique(ids)) != n_expect:
+            fail(f"{label}: migration lost or duplicated particles")
+        return {"migrated": int(migrated.sum()), "dropped": dropped,
+                "window_misses": int(res.window_misses.sum()),
+                "occupancy": [float(occ.min()), float(np.median(occ)),
+                              float(occ.max())]}
+
+    # ---- 6a: particle-sharded, 4 shards on the card -----------------------
+    log(f"[phase 6a] run_advection_sharded: 4 shards on {dev}, the streamline"
+        f" day through the window path (K3 and its K1 repair)")
+    begin()
+    raw = timed("6a sharded streamline", lambda: run_advection_sharded(
+        mesh32, sols["stream", f32], seeds, cells, cfg, devices=[dev] * 4))
+    got = counts("6a")
+    steps = cfg.n_steps
+    expect("6a", got, {"k3": 4 * steps, "k3 repair": 4 * steps})
+    equal = all(torch.equal(getattr(raw, f), getattr(refs["k3"], f))
+                for f in ("points", "velocities", "final_position",
+                          "final_depth", "final_cell", "alive"))
+    log(f"  launches {got}; positions and records bit-equal to phase 2a: "
+        f"{equal}")
+    if not equal:
+        fail("6a: the sharded run differs from phase 2a")
+    out["6a"] = {"launches": got, "rate": rate_line(
+        "6a", times["6a sharded streamline"], steps, "k3")}
+    del raw
+    try:
+        api.MOPS_Init(dev.type, "fp32", devices=torch.cuda.device_count() + 1)
+    except RuntimeError as err:
+        log(f"  MOPS_Init(devices={torch.cuda.device_count() + 1}) raised: "
+            f"{err}")
+    else:
+        fail("MOPS_Init with more devices than cards did not raise")
+
+    # ---- 6b: migrating streamline, 8 shards --------------------------------
+    shards8 = [dev] * 8
+    for k, windowed, key in ((1, True, "k3"), (8, True, "k3"),
+                             (8, False, "k1")):
+        label = f"6b migrating streamline, migrate_every={k}, {key.upper()}"
+        log(f"[phase {label}] 8 shards on {dev}, the day")
+        begin()
+        res = timed(label, lambda: run_advection_migrating(
+            mesh32, sols["stream", f32], seeds, cells, cfg, devices=shards8,
+            dtype=f32, migrate_every=k, use_window=windowed))
+        got = counts(label)
+        want = {key: 8 * steps}
+        if windowed:
+            want[f"{key} repair"] = 8 * steps
+        expect(label, got, want)
+        row = migration_checks(label, res)
+        row["within_100m"], row["bit_equal"] = held(
+            label, reassemble(res, n, seeds), key)
+        row["launches"] = got
+        row["rate"] = rate_line(label, times[label], steps, key)
+        out[f"6b k{k} {key}"] = row
+        del res
+
+    # the exchange's share of a step: torch.profiler over 30 steps
+    prof_cfg = mtt.TrajectorySettings(
+        delta_t=cfg.delta_t, simulation_duration=cfg.delta_t * PROFILE_STEPS,
+        record_t=cfg.record_t, particle_depths=depths,
+        fail_mode=mtt.FailMode.ZERO)
+    out["exchange"] = exchange_profile(lambda: run_advection_migrating(
+        mesh32, sols["stream", f32], seeds, cells, prof_cfg, devices=shards8,
+        dtype=f32, migrate_every=1), smi)
+
+    # ---- 6c: migrating pathline, the month --------------------------------
+    label = "6c migrating pathline, migrate_every=8, K4"
+    log(f"[phase {label}] 8 shards on {dev}, the month with both attributes")
+    begin()
+    res = timed(label, lambda: run_advection_migrating(
+        mesh32, sols["front", f32], seeds, cells, pcfg, devices=shards8,
+        dtype=f32, back=sols["back", f32], migrate_every=8))
+    got = counts(label)
+    psteps = pcfg.n_steps
+    expect(label, got, {"k4": 8 * psteps, "k4 repair": 8 * psteps})
+    row = migration_checks(label, res)
+    traj = reassemble(res, n, seeds)
+    row["within_100m"], row["bit_equal"] = held(label, traj, "k4")
+    attrs, fpos = traj[2], traj[3]
+    alive = torch.isfinite(fpos).all(dim=1)
+    att = attrs[alive][:, :, :2]
+    nonzero = float((att != 0).all(dim=2).double().mean())
+    log(f"  attribute records finite: {bool(torch.isfinite(att).all())}, "
+        f"non-zero on alive lanes: {100 * nonzero:.3f}%")
+    if not bool(torch.isfinite(att).all()) or nonzero < ATTR_NONZERO:
+        fail(f"{label}: attributes are not finite and non-zero")
+    row.update(launches=got, attr_nonzero=nonzero,
+               rate=rate_line(label, times[label], psteps, "k4"))
+    out["6c"] = row
+    del res, traj, attrs, fpos, att
+
+    # ---- 6d: forced send overflow ------------------------------------------
+    # 64 identical equatorial seeds in shard 0's cell nearest shard 1's west
+    # edge: the eastward flow carries them all across in one step
+    owner = partition_cells(mesh_h, 8)
+    cx = mesh_h.cell_xyz.numpy()
+    lon_c = np.arctan2(cx[:, 1], cx[:, 0])
+    search = mtt.CellSearch(mesh_h)
+    for west in np.deg2rad(np.arange(0.5, 20.0, 0.5)):
+        lons = np.full(64, lon_c[owner == 1].min() - west)
+        band = mtt.geo.latlon_rad_to_xyz(
+            torch.zeros(64, dtype=torch.float64),
+            torch.from_numpy(lons)).numpy()
+        band_cells = search.query(band)
+        if owner[band_cells[0]] == 0:
+            break
+    ocfg = mtt.TrajectorySettings(delta_t=cfg.delta_t,
+                                  simulation_duration=cfg.simulation_duration,
+                                  record_t=cfg.record_t, depth=100.0,
+                                  fail_mode=mtt.FailMode.ZERO)
+    label = "6d forced overflow, send_capacity=1"
+    log(f"[phase {label}] 64 seeds {np.rad2deg(west):.1f} deg west of "
+        f"shard 1, 8 shards")
+    begin()
+    res = timed(label, lambda: run_advection_migrating(
+        mesh32, sols["stream", f32], band, band_cells, ocfg, devices=shards8,
+        dtype=f32, send_capacity=1, capacity_factor=9.0))
+    got = counts(label)
+    expect(label, got, {"k3": 8 * steps, "k3 repair": 8 * steps})
+    fids = res.final_ids.cpu().numpy().ravel()
+    ok = fids >= 0
+    survivors = fids[ok]
+    dropped = int(res.dropped.sum())
+    single = mtt.run_advection(mesh32, sols["stream", f32], band, band_cells,
+                               ocfg, device=dev)
+    fpos = res.final_pos.reshape(-1, 3)[torch.from_numpy(ok).to(dev)]
+    err = (fpos.double() - single.final_position[
+        torch.from_numpy(survivors).to(dev).long()].double()).norm(dim=1)
+    log(f"  dropped {dropped}, survivors {len(survivors)} "
+        f"({len(np.unique(survivors))} distinct), migrated "
+        f"{int(res.migrated.sum())}; survivors' final positions vs the "
+        f"single-device run: max {float(err.max()):.3e} m, "
+        f"{100 * float((err == 0).double().mean()):.3f}% bit-equal")
+    if dropped == 0 or len(survivors) + dropped != 64 \
+            or len(np.unique(survivors)) != len(survivors) \
+            or not bool((err <= 100.0).all()):
+        fail(f"{label}: losses not accounted")
+    out["6d"] = {"dropped": dropped, "survivors": len(survivors),
+                 "max_err_m": float(err.max()), "launches": got}
+    del res, single
+
+    # ---- 6e: BASELINE config 5 at its own shape ----------------------------
+    label = "6e BASELINE config 5"
+    log(f"[phase {label}] scripts/baseline_configs.py:158-186: 20,000 "
+        f"cells, L20, 200,000 uniform seeds, dt 3600 s, 100 steps, "
+        f"migrate_every=8, 8 shards")
+    n_cells5, n_layers5, n_seeds5, steps5 = CONFIG5
+    mesh5 = mtt.synth.build_voronoi_mesh(n_cells5, jitter=0.05,
+                                         n_layers=n_layers5)
+    raw5 = mtt.synth.solid_body_fields(mesh5, n_layers=n_layers5,
+                                       w_scale=1e-5)
+    mesh5 = mesh5.to(dev, f32)
+    sol5 = mtt.preprocess(mesh5, {k: np.asarray(v, np.float32)
+                                  for k, v in raw5.items()}, dtype=f32,
+                          device=dev)
+    rng = np.random.default_rng(0)
+    v = rng.normal(size=(n_seeds5, 3))
+    seeds5 = (v / np.linalg.norm(v, axis=1, keepdims=True)
+              * mtt.EARTH_RADIUS).astype(np.float32)
+    cells5 = mtt.CellSearch(mesh5).query(seeds5)
+    cfg5 = mtt.TrajectorySettings(delta_t=3600,
+                                  simulation_duration=3600 * steps5,
+                                  record_t=3600 * 25, depth=50.0,
+                                  fail_mode=mtt.FailMode.ZERO)
+    begin()
+    res = timed(label, lambda: run_advection_migrating(
+        mesh5, sol5, seeds5, cells5, cfg5, devices=shards8, dtype=f32,
+        migrate_every=8))
+    got = counts(label)
+    expect(label, got, {"k3": 8 * steps5, "k3 repair": 8 * steps5})
+    row = migration_checks(label, res, n_seeds5)
+    rate = n_seeds5 * steps5 / times[label]
+    log(f"  {label}: {rate:.6e} particle-RK4-steps/s (decomposition "
+        f"included), dropped {row['dropped']} ({smi})")
+    row.update(rate=rate, launches=got)
+    out["6e"] = row
+    del res
+
+    times["phase 6"] = time.perf_counter() - t_phase6
+    log(f"  phase 6: {times['phase 6']:.3f} s (budget {PHASE6_BUDGET} s)")
+    out["seconds"] = times["phase 6"]
+    return out
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -965,6 +1322,7 @@ def main():
         fail_mode=mtt.FailMode.ZERO)
     summary = {}
     finals = {}
+    refs = {}
     last_points = {}
     for label, key, pathline, windowed in (
             ("2a streamline, layer window", "k3", False, True),
@@ -1045,6 +1403,8 @@ def main():
             del att
         finals[key] = final.cpu().numpy()
         last_points[key] = np.stack([line.last_point for line in lines])
+        if key != "k2":
+            refs[key] = raw_traj         # phase 6's references
         del raw_traj, lines
     for a, b in (("k3", "k1"), ("k4", "k2")):
         err = np.linalg.norm(finals[a] - finals[b], axis=1)
@@ -1176,6 +1536,19 @@ def main():
         dev, mesh_h, sols, seeds, cfg, pcfg, last_points, kernels,
         reset_counts, timed, times, smi)
 
+    # ---- phase 6: the multi-device engines on the card -------------------
+    multi_summary = multi_device(
+        dev, mesh_h, sols, seeds, cells, depths, cfg, pcfg, refs, summary,
+        kernels, reset_counts, timed, times, smi)
+    del refs
+    for key, repair_of in (("k1", "k3"), ("k2", "k4"), ("k3", None),
+                           ("k4", None)):
+        rows[key]["phase6_launches"] = {
+            sub: row["launches"][key] + (row["launches"][f"{repair_of} repair"]
+                                         if repair_of else 0)
+            for sub, row in multi_summary.items()
+            if isinstance(row, dict) and "launches" in row}
+
     # ---- the kernels' bounds at the main paths' start inputs -------------
     bounds = {}
     for key, pathline, n_attrs, n_window in (
@@ -1195,7 +1568,7 @@ def main():
 
     log(json.dumps({"phase_seconds": times, "build_seconds": build_s,
                     "main_paths": summary, "remap": remap_summary,
-                    "api": api_summary,
+                    "api": api_summary, "multi_device": multi_summary,
                     "bounds_ms": {k: v[0] for k, v in bounds.items()},
                     "profile": profile_rows}))
     replaces = {"k1": "mops_tpu/pallas/stage_kernel.py:479",

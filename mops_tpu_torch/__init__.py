@@ -62,8 +62,8 @@ torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 
 from . import (advect, api, cellsearch, config, field, geo,  # noqa: E402
-               interp, mesh, remap, seeding, settings, solution, step, synth,
-               trajectory)
+               interp, mesh, parallel, remap, seeding, settings, solution,
+               step, synth, trajectory)
 from .advect import RawTrajectories, run_advection  # noqa: E402
 from .api import (MOPS_ActiveAttribute, MOPS_AddAttribute,  # noqa: E402
                   MOPS_AddGridMesh, MOPS_Begin, MOPS_End,
@@ -72,7 +72,7 @@ from .api import (MOPS_ActiveAttribute, MOPS_AddAttribute,  # noqa: E402
                   MOPS_PrintTimingDetailed, MOPS_PrintTimingSummary,
                   MOPS_ResetTiming, MOPS_RunPathLine, MOPS_RunReGrid,
                   MOPS_RunRemapping, MOPS_RunStreamLine, MOPSApp, solution_id)
-from .cellsearch import CellSearch  # noqa: E402
+from .cellsearch import BucketGrid, CellSearch  # noqa: E402
 from .config import EARTH_RADIUS  # noqa: E402
 from .field import Field  # noqa: E402
 from .mesh import MPASMesh  # noqa: E402

@@ -192,6 +192,263 @@ def stage_alphas(alpha, dt: float, duration: int, real: torch.dtype):
             np.clip(a1 + dalpha, t(0), t(1)))
 
 
+def pathline_attrs(front: SolutionFields,
+                   back: Optional[SolutionFields] = None):
+    """(front stack, back stack, n_attrs) of the named attributes a run
+    records: up to two, on a pathline whose snapshots both have them
+    (mops_tpu's gate: front has more than one, back at least one); else
+    (None, None, 0)."""
+    if back is None or len(front.cell_attrs) <= 1 \
+            or len(back.cell_attrs) == 0:
+        return None, None, 0
+    attr_f, attr_b = stacked_vertex_attrs(front), stacked_vertex_attrs(back)
+    n_attrs = min(attr_f.shape[-1], attr_b.shape[-1], 2)
+    return attr_f[..., :n_attrs], attr_b[..., :n_attrs], n_attrs
+
+
+def snapshot_tables(mesh: MPASMesh, front: SolutionFields,
+                    back: Optional[SolutionFields] = None):
+    """(table, table_b or None, n_attrs): the packed vertex tables of the
+    front (and back) snapshot with pathline_attrs' attributes."""
+    attr_f, attr_b, n_attrs = pathline_attrs(front, back)
+    table = pack_vertex_table(mesh.vertex_xyz, front.vertex_ztop,
+                              front.vertex_velocity,
+                              front.vertex_vert_velocity, attr_f)
+    table_b = None if back is None else pack_vertex_table(
+        mesh.vertex_xyz, back.vertex_ztop, back.vertex_velocity,
+        back.vertex_vert_velocity, attr_b)
+    return table, table_b, n_attrs
+
+
+@dataclasses.dataclass(frozen=True)
+class Stepper:
+    """What a step needs besides the particles: one mesh's tables on one
+    device (the whole mesh, or a shard's local tables) and the run's
+    settings.  ``n_window`` is the layer window's width, 0 for the
+    full-column step."""
+
+    mesh: MPASMesh
+    reloc_xyz: torch.Tensor
+    table: torch.Tensor
+    table_b: Optional[torch.Tensor]
+    n_layers: int
+    n_attrs: int
+    n_window: int
+    use_kernel: bool
+    exact_clamp: bool
+    euler: bool
+    freeze: bool
+    dt: float
+    duration: int
+    is_first: np.ndarray
+    flags: np.ndarray
+    slots: np.ndarray
+    alphas: np.ndarray
+
+    @property
+    def pathline(self) -> bool:
+        return self.table_b is not None
+
+
+def make_stepper(mesh: MPASMesh, table, table_b, n_attrs: int,
+                 settings: TrajectorySettings, use_kernel: bool = True,
+                 exact_clamp: bool = True, n_window: int = 0) -> Stepper:
+    """A Stepper over ``mesh`` and packed tables already on one device in
+    the run dtype."""
+    if use_kernel and not exact_clamp:
+        raise ValueError("the fused step kernel implements the sequential "
+                         "(exact) ztop clamp only")
+    pathline = table_b is not None
+    is_first, flags, slots, alphas, dt = advection_schedule(settings, pathline)
+    n_layers = (table.shape[1] - 4) // (5 + n_attrs)
+    return Stepper(mesh=mesh, reloc_xyz=build_reloc_xyz(mesh), table=table,
+                   table_b=table_b, n_layers=n_layers, n_attrs=n_attrs,
+                   n_window=n_window, use_kernel=use_kernel,
+                   exact_clamp=exact_clamp,
+                   euler=settings.method == CalcMethod.EULER,
+                   freeze=settings.fail_mode == FailMode.FREEZE, dt=dt,
+                   duration=int(settings.simulation_duration),
+                   is_first=is_first, flags=flags, slots=slots, alphas=alphas)
+
+
+@dataclasses.dataclass
+class Particles:
+    """A batch of particles on one device and their record buffers, which
+    ``advance`` updates in place.  ``layer`` is the window path's carried
+    layer and ``misses`` its per-particle window-miss count (None on the
+    full-column path).  ``pid`` and ``rec_ids`` tag a migrating pool's
+    slots and records with particle ids (-1: empty slot, no record)."""
+
+    pos: torch.Tensor              # (N, 3) run dtype
+    depth: torch.Tensor            # (N,) float32
+    cell: torch.Tensor             # (N,) int32
+    alive: torch.Tensor            # (N,) bool
+    pts: torch.Tensor              # (N, R, 3)
+    vels: torch.Tensor             # (N, R, 3)
+    attrs: Optional[torch.Tensor]  # (N, R, 3) on a pathline
+    layer: Optional[torch.Tensor] = None
+    misses: Optional[torch.Tensor] = None
+    pid: Optional[torch.Tensor] = None
+    rec_ids: Optional[torch.Tensor] = None
+
+    def raw(self) -> RawTrajectories:
+        return RawTrajectories(points=self.pts, velocities=self.vels,
+                               attrs=self.attrs, final_position=self.pos,
+                               final_depth=self.depth, final_cell=self.cell,
+                               alive=self.alive, window_misses=self.misses)
+
+
+def seed_layers(mesh: MPASMesh, vertex_ztop: torch.Tensor, pos, cell,
+                depth) -> torch.Tensor:
+    """The layer window's first centre: a full-column binary layer search
+    at each start position (as mops_tpu seeds its window hint)."""
+    vids, nv, _ = _gather_cell_vertices(mesh, torch.clamp(cell, min=0))
+    w = wachspress_weights(pos, mesh.vertex_xyz[vids.long()], nv)
+    z = _clamp_profile(torch.einsum("nk,nkl->nl", w,
+                                    vertex_ztop[vids.long()]), True)
+    return _layer_search_binary(z, (-depth).to(pos.dtype)).to(torch.int32)
+
+
+def new_particles(st: Stepper, pos, cell, depth, n_records: int,
+                  layer=None) -> Particles:
+    """Particles at their start: ``cell`` -1 (or beyond the mesh) marks a
+    dead particle; slot 0 of the points is pre-seeded with the start
+    position (TBB kernel :901).  The window path needs ``layer``."""
+    n = pos.shape[0]
+    alive = (cell >= 0) & (cell < st.mesh.n_cells)
+    pts = torch.zeros((n, n_records, 3), dtype=pos.dtype, device=pos.device)
+    pts[:, 0] = _where0(alive[:, None], pos)
+    misses = None
+    if st.n_window:
+        if layer is None:
+            raise ValueError("the window path needs the start layers")
+        misses = torch.zeros(n, dtype=torch.int32, device=pos.device)
+    return Particles(pos=pos, depth=depth, cell=cell, alive=alive, pts=pts,
+                     vels=torch.zeros_like(pts),
+                     attrs=torch.zeros_like(pts) if st.pathline else None,
+                     layer=layer if st.n_window else None, misses=misses)
+
+
+def advance(st: Stepper, p: Particles, i: int) -> None:
+    """Step ``i`` of the run for every particle of ``p``, in place:
+    relocate (not on step 0), gather the cell's vertex ids, one fused step,
+    the depth/radius update and the records.  Launches work only: nothing
+    here waits on the device."""
+    real = p.pos.dtype
+    dt = st.dt
+    pos, depth, cell, alive = p.pos, p.depth, p.cell, p.alive
+    depth_neg = (-depth).to(real)
+    if not st.is_first[i]:
+        new_cell = _relocate_packed(st.mesh, st.reloc_xyz, pos, cell)
+        cell = torch.where(alive, new_cell, cell)
+    vids, nv, vids_ok = _gather_cell_vertices(st.mesh, cell)
+    alphas = stage_alphas(st.alphas[i], dt, st.duration, real) \
+        if st.pathline else None
+    if st.n_window:
+        s = window_starts(p.layer, st.n_layers, st.n_window)
+        if st.pathline:
+            np_k, hv_k, wv_k, ok_k, layer_k, miss, at_k = \
+                fused_window_pathline_step(
+                    pos, depth_neg, nv, vids, s, st.table, st.table_b,
+                    st.n_layers, st.n_window, dt, alphas, euler=st.euler,
+                    n_attrs=st.n_attrs)
+        else:
+            np_k, hv_k, wv_k, ok_k, layer_k, miss = \
+                fused_window_streamline_step(
+                    pos, depth_neg, nv, vids, s, st.table, st.n_layers,
+                    st.n_window, dt, euler=st.euler)
+            at_k = None
+        p.layer = torch.where(alive, layer_k, p.layer)
+        p.misses += (miss & alive & vids_ok).to(torch.int32)
+    elif st.pathline:
+        pstep = fused_pathline_step if st.use_kernel else functools.partial(
+            fused_pathline_step_plain, exact_clamp=st.exact_clamp)
+        np_k, hv_k, wv_k, ok_k, at_k = pstep(
+            pos, depth_neg, nv, vids, st.table, st.table_b, st.n_layers, dt,
+            alphas, euler=st.euler, n_attrs=st.n_attrs)
+    else:
+        step = fused_streamline_step if st.use_kernel else functools.partial(
+            fused_streamline_step_plain, exact_clamp=st.exact_clamp)
+        np_k, hv_k, wv_k, ok_k = step(pos, depth_neg, nv, vids, st.table,
+                                      st.n_layers, dt, euler=st.euler)
+        at_k = None
+    # invalid vertex ids (reference R_VLA_FAIL) are checked outside the
+    # step: zero the velocities and attributes and keep the position
+    step_ok = ok_k & vids_ok
+    hvel = _where0(vids_ok[:, None], hv_k)
+    wvel = _where0(vids_ok, wv_k)
+    new_pos = torch.where(vids_ok[:, None], np_k, pos)
+
+    write_ok = (alive & step_ok) if st.freeze else alive
+
+    r = _norm(pos)
+    new_depth = torch.clamp(depth.to(real) - wvel * dt, min=0.0)
+    r_new = torch.clamp(r + wvel * dt, min=1.0)
+    nlen = _norm(new_pos)
+    new_pos = torch.where(
+        (nlen > EPS_ZERO)[:, None],
+        new_pos / torch.where(nlen == 0.0, torch.ones_like(nlen),
+                              nlen)[:, None] * r_new[:, None],
+        new_pos)
+
+    p.pos = pos = torch.where(write_ok[:, None], new_pos, pos)
+    p.depth = torch.where(write_ok, new_depth.to(depth.dtype), depth)
+    p.cell, p.alive = cell, write_ok
+
+    # first-step velocity/attr into slot 0 (TBB kernel :988-991); the
+    # attribute buffer stays zero without attributes
+    upd = write_ok[:, None]
+    records = [(p.vels, hvel)]
+    if at_k is not None:
+        records.append((p.attrs, _where0(vids_ok[:, None], at_k)))
+    if st.is_first[i]:
+        for buf, val in records:
+            buf[:, 0] = torch.where(upd, val, buf[:, 0])
+    if st.flags[i]:
+        s = int(st.slots[i])
+        p.pts[:, s] = torch.where(upd, pos, p.pts[:, s])
+        for buf, val in records:
+            buf[:, s] = torch.where(upd, val, buf[:, s])
+        if p.rec_ids is not None:
+            p.rec_ids[:, s] = torch.where(write_ok, p.pid, p.rec_ids[:, s])
+
+
+def resolve_window(use_kernel: bool, use_window: Optional[bool],
+                   device: torch.device, n_layers: int,
+                   window: Optional[int] = None) -> int:
+    """The layer window's width for a run, 0 for the full-column step:
+    ``use_window`` None turns the window on for a kernel run on a CUDA
+    device with L > 2 (mops_tpu turns it on for compiled TPU runs); the
+    width is min(L, max(4, ``window``)), ``window`` None taking
+    WINDOW_LAYERS."""
+    windowed = use_kernel and (device.type == "cuda" and n_layers > 2
+                               if use_window is None else bool(use_window))
+    window = WINDOW_LAYERS if window is None else int(window)
+    return min(n_layers, max(4, window)) if windowed else 0
+
+
+def particle_bounds(n: int, n_slices: int) -> np.ndarray:
+    """Start of each of ``n_slices`` contiguous slices of n particles (the
+    first n % n_slices slices one longer), then n."""
+    sizes = np.full(n_slices, n // n_slices)
+    sizes[:n % n_slices] += 1
+    return np.concatenate([[0], np.cumsum(sizes)])
+
+
+def concat_raw(parts, device) -> RawTrajectories:
+    """RawTrajectories of particle batches, concatenated in order on
+    ``device`` (a single batch is only moved there)."""
+    def cat(name):
+        vals = [getattr(r, name) for r in parts]
+        if vals[0] is None:
+            return None
+        if len(vals) == 1:
+            return vals[0].to(device)
+        return torch.cat([v.to(device) for v in vals])
+    return RawTrajectories(**{f.name: cat(f.name)
+                              for f in dataclasses.fields(RawTrajectories)})
+
+
 def run_advection(mesh: MPASMesh, front: SolutionFields,
                   seeds, cells, settings: TrajectorySettings,
                   back: Optional[SolutionFields] = None,
@@ -200,7 +457,9 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
                   use_kernel: bool = True,
                   device="cuda",
                   use_window: Optional[bool] = None,
-                  window: int = WINDOW_LAYERS) -> RawTrajectories:
+                  window: Optional[int] = None,
+                  chunk: Optional[int] = None,
+                  devices=None) -> RawTrajectories:
     """Run a full streamline (back=None) or pathline advection on ``device``:
     the card unless the caller passes device="cpu" (without a card a CUDA
     request raises).  The mesh and solution tables are moved there and cast
@@ -223,148 +482,71 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
 
     ``use_window`` routes the kernel path through the layer-window kernels
     (fused_window_*_step) with windows of min(L, max(4, ``window``))
-    layers; None turns it on for a CUDA run with L > 2 (mops_tpu turns it on
-    for compiled TPU runs), False keeps the full-column kernels.
+    layers (``window`` None: WINDOW_LAYERS); None turns it on for a CUDA
+    run with L > 2 (mops_tpu turns it on for compiled TPU runs), False
+    keeps the full-column kernels.
+
+    ``devices`` (default ``[device]``; entries may repeat) splits the
+    particles into one contiguous slice a device: the tables are copied
+    once to each distinct device, and every step launches each slice's
+    work before anything waits on the host, so slices on distinct cards
+    overlap (mops_tpu.parallel.run_advection_sharded).  ``chunk`` runs
+    each device's slice in pieces of at most that many particles, one
+    after another (mops_tpu.run_advection's chunk): it bounds the card
+    memory of the (N, R, 3) record buffers of a large run.  Every particle
+    sees the same operations on the same values either way, so the
+    results equal the single whole run's; they are concatenated in
+    particle order on the first device.
     """
-    pathline = back is not None
-    if use_kernel and not exact_clamp:
-        raise ValueError("the fused step kernel implements the sequential "
-                         "(exact) ztop clamp only")
-    device = resolve_device(device)
+    devices = [resolve_device(d) for d in (devices or [device])]
     real = mesh.dtype if dtype is None else dtype
-    n = len(seeds)
     n_steps, n_rec = settings.n_steps, settings.n_records
     if n_steps <= 0 or n_rec <= 0:
         raise ValueError("invalid integration steps "
                          f"(n_steps={n_steps}, n_records={n_rec})")
+    if chunk is not None and int(chunk) < 1:
+        raise ValueError(f"chunk must be positive, got {chunk}")
+    seeds = np.array(seeds)
+    n = len(seeds)
+    cells = np.array(cells, dtype=np.int32)
+    depths = settings.effective_depths(n)
 
-    # mesh + solution tables on the device in the particle dtype (no-ops
-    # when they agree)
-    mesh = mesh.to(device, real)
-    front = front.to(device, real)
-    back = back.to(device, real) if pathline else None
+    # mesh + solution tables on each distinct device in the particle dtype
+    # (no-ops when they agree), packed once
+    steppers = {}
+    for dev in dict.fromkeys(devices):
+        mesh_d = mesh.to(dev, real)
+        front_d = front.to(dev, real)
+        back_d = back.to(dev, real) if back is not None else None
+        steppers[dev] = make_stepper(
+            mesh_d, *snapshot_tables(mesh_d, front_d, back_d), settings,
+            use_kernel, exact_clamp, resolve_window(
+                use_kernel, use_window, dev, front.vertex_ztop.shape[1],
+                window)), front_d.vertex_ztop
 
-    is_first, flags, slots, alphas, dt = advection_schedule(settings, pathline)
-    duration = int(settings.simulation_duration)
-    euler = settings.method == CalcMethod.EULER
-    freeze = settings.fail_mode == FailMode.FREEZE
+    def start(dev, a, b):
+        st, ztop = steppers[dev]
+        pos = torch.as_tensor(seeds[a:b], device=dev).to(real)
+        cell = torch.as_tensor(cells[a:b], device=dev)
+        depth = torch.as_tensor(depths[a:b], device=dev)
+        layer = seed_layers(st.mesh, ztop, pos, cell, depth) \
+            if st.n_window else None
+        return st, new_particles(st, pos, cell, depth, n_rec, layer)
 
-    pos = torch.as_tensor(np.array(seeds), device=device).to(real)
-    cell = torch.as_tensor(np.array(cells), device=device).to(torch.int32)
-    depth = torch.as_tensor(settings.effective_depths(n), device=device)
-    alive = (cell >= 0) & (cell < mesh.n_cells)
-
-    pts = torch.zeros((n, n_rec, 3), dtype=real, device=device)
-    vels = torch.zeros_like(pts)
-    attrs = torch.zeros_like(pts) if pathline else None
-    # first_loop pre-seeds slot 0 with the start position (TBB kernel :901)
-    pts[:, 0] = _where0(alive[:, None], pos)
-
-    reloc_xyz = build_reloc_xyz(mesh)
-    n_layers = front.vertex_ztop.shape[1]
-    n_attrs = 0
-    attr_f = attr_b = None
-    if pathline and len(front.cell_attrs) > 1 and len(back.cell_attrs) > 0:
-        attr_f, attr_b = stacked_vertex_attrs(front), stacked_vertex_attrs(back)
-        n_attrs = min(attr_f.shape[-1], attr_b.shape[-1], 2)
-        attr_f, attr_b = attr_f[..., :n_attrs], attr_b[..., :n_attrs]
-    windowed = use_kernel and (device.type == "cuda" and n_layers > 2
-                               if use_window is None else bool(use_window))
-    n_window = min(n_layers, max(4, int(window)))
-    misses = None
-    if windowed:
-        # the first window sits around the seeds' layer (a full-column
-        # binary search, as mops_tpu seeds its window hint)
-        vids0, nv0, _ = _gather_cell_vertices(mesh, torch.clamp(cell, min=0))
-        w0 = wachspress_weights(pos, mesh.vertex_xyz[vids0.long()], nv0)
-        z0 = _clamp_profile(torch.einsum(
-            "nk,nkl->nl", w0, front.vertex_ztop[vids0.long()]), True)
-        layer = _layer_search_binary(z0, (-depth).to(real)).to(torch.int32)
-        misses = torch.zeros(n, dtype=torch.int32, device=device)
-    table = pack_vertex_table(mesh.vertex_xyz, front.vertex_ztop,
-                              front.vertex_velocity,
-                              front.vertex_vert_velocity, attr_f)
-    if pathline:
-        table_b = pack_vertex_table(mesh.vertex_xyz, back.vertex_ztop,
-                                    back.vertex_velocity,
-                                    back.vertex_vert_velocity, attr_b)
-        pstep = fused_pathline_step if use_kernel else functools.partial(
-            fused_pathline_step_plain, exact_clamp=exact_clamp)
-    else:
-        step = fused_streamline_step if use_kernel else functools.partial(
-            fused_streamline_step_plain, exact_clamp=exact_clamp)
-
-    for i in range(n_steps):
-        depth_neg = (-depth).to(real)
-        if not is_first[i]:
-            new_cell = _relocate_packed(mesh, reloc_xyz, pos, cell)
-            cell = torch.where(alive, new_cell, cell)
-        vids, nv, vids_ok = _gather_cell_vertices(mesh, cell)
-        if windowed:
-            s = window_starts(layer, n_layers, n_window)
-            if pathline:
-                np_k, hv_k, wv_k, ok_k, layer_k, miss, at_k = \
-                    fused_window_pathline_step(
-                        pos, depth_neg, nv, vids, s, table, table_b,
-                        n_layers, n_window, dt,
-                        stage_alphas(alphas[i], dt, duration, real),
-                        euler=euler, n_attrs=n_attrs)
-            else:
-                np_k, hv_k, wv_k, ok_k, layer_k, miss = \
-                    fused_window_streamline_step(
-                        pos, depth_neg, nv, vids, s, table, n_layers,
-                        n_window, dt, euler=euler)
-                at_k = None
-            layer = torch.where(alive, layer_k, layer)
-            misses += (miss & alive & vids_ok).to(torch.int32)
-        elif pathline:
-            np_k, hv_k, wv_k, ok_k, at_k = pstep(
-                pos, depth_neg, nv, vids, table, table_b, n_layers, dt,
-                stage_alphas(alphas[i], dt, duration, real), euler=euler,
-                n_attrs=n_attrs)
-        else:
-            np_k, hv_k, wv_k, ok_k = step(pos, depth_neg, nv, vids, table,
-                                          n_layers, dt, euler=euler)
-            at_k = None
-        # invalid vertex ids (reference R_VLA_FAIL) are checked outside the
-        # step: zero the velocities and attributes and keep the position
-        step_ok = ok_k & vids_ok
-        hvel = _where0(vids_ok[:, None], hv_k)
-        wvel = _where0(vids_ok, wv_k)
-        new_pos = torch.where(vids_ok[:, None], np_k, pos)
-
-        write_ok = (alive & step_ok) if freeze else alive
-        alive = write_ok
-
-        r = _norm(pos)
-        new_depth = torch.clamp(depth.to(real) - wvel * dt, min=0.0)
-        r_new = torch.clamp(r + wvel * dt, min=1.0)
-        nlen = _norm(new_pos)
-        new_pos = torch.where(
-            (nlen > EPS_ZERO)[:, None],
-            new_pos / torch.where(nlen == 0.0, torch.ones_like(nlen),
-                                  nlen)[:, None] * r_new[:, None],
-            new_pos)
-
-        pos = torch.where(write_ok[:, None], new_pos, pos)
-        depth = torch.where(write_ok, new_depth.to(depth.dtype), depth)
-
-        # first-step velocity/attr into slot 0 (TBB kernel :988-991); the
-        # attribute buffer stays zero without attributes
-        upd = write_ok[:, None]
-        records = [(vels, hvel)]
-        if at_k is not None:
-            records.append((attrs, _where0(vids_ok[:, None], at_k)))
-        if is_first[i]:
-            for buf, val in records:
-                buf[:, 0] = torch.where(upd, val, buf[:, 0])
-        if flags[i]:
-            s = int(slots[i])
-            pts[:, s] = torch.where(upd, pos, pts[:, s])
-            for buf, val in records:
-                buf[:, s] = torch.where(upd, val, buf[:, s])
-
-    return RawTrajectories(points=pts, velocities=vels, attrs=attrs,
-                           final_position=pos, final_depth=depth,
-                           final_cell=cell, alive=alive,
-                           window_misses=misses)
+    # each device's slice in pieces of at most ``size``: round r runs every
+    # device's r-th piece side by side
+    bounds = particle_bounds(n, len(devices))
+    size = max(1, n if chunk is None else int(chunk))
+    pieces = [[(a, min(a + size, b)) for a in range(a0, b, size)]
+              for a0, b in zip(bounds[:-1], bounds[1:])]
+    if n == 0:
+        pieces[0] = [(0, 0)]
+    done = {}
+    for r in range(max(map(len, pieces))):
+        batch = {(q, r): start(devices[q], *ps[r])
+                 for q, ps in enumerate(pieces) if r < len(ps)}
+        for i in range(n_steps):
+            for st, p in batch.values():
+                advance(st, p, i)
+        done.update({k: p.raw() for k, (_, p) in batch.items()})
+    return concat_raw([done[k] for k in sorted(done)], devices[0])

@@ -19,6 +19,7 @@ import torch
 from . import advect, remap as remap_mod, seeding, trajectory
 from .field import Field
 from .mesh import MPASMesh, resolve_device
+from .parallel.sharding import device_list
 from .settings import (SamplingSettings, SaveType, TrajectoryLine,
                        TrajectorySettings, VisualizationSettings,
                        VisualizeType)
@@ -54,24 +55,27 @@ class MOPSApp:
     solutions: Dict[int, SolutionFields] = dataclasses.field(default_factory=dict)
     field: Optional[Field] = None
     precision: str = "fp64"
+    devices: list = dataclasses.field(default_factory=list)
 
     # -- lifecycle ----------------------------------------------------------
     def init(self, device="cuda", precision: str = "fp64",
              devices: int = 1) -> None:
         """Select the device (the card unless device="cpu") and the
-        precision.  One device only: ``devices`` > 1 raises."""
-        if int(devices) > 1:
-            raise NotImplementedError(
-                "multi-GPU runs are not ported yet (ROADMAP queue 1, item 5: "
-                "multi-GPU); run on one device")
+        precision.  ``devices`` > 1 splits the particles of every trajectory
+        run over that many devices (run_advection's ``devices``): cards
+        0..n-1, or n CPU shards with device="cpu"; more than the machine's
+        cards raises."""
         if precision not in _DTYPES:
             raise ValueError(f"precision must be one of {sorted(_DTYPES)}")
         self.device = resolve_device(device)
+        self.devices = device_list(devices, self.device.type) \
+            if int(devices) > 1 else [self.device]
         self.precision = precision
         name = torch.cuda.get_device_name(self.device) \
             if self.device.type == "cuda" else "cpu"
         print(" [ system information ]")
-        print(f"Device selected : {self.device.type}:{name}")
+        print(f"Device selected : {self.device.type}:{name} "
+              f"x{len(self.devices)}")
         print(f"Precision mode  : {precision}")
         self.state = _State.UNINITIALIZED
 
@@ -128,13 +132,13 @@ class MOPSApp:
         return seeding.generate_sample_points(cfg)
 
     def _advect(self, sample_points, cfg, back=None):
-        """One trajectory run on the app's device, from the field's tables
-        (moved there once)."""
+        """One trajectory run from the field's tables (moved to the app's
+        device once), its particles split over the app's devices."""
         cells = self.field.calc_in_which_cells(sample_points)
         mesh, front = self.field.device_tables()
         return advect.run_advection(mesh, front, sample_points, cells, cfg,
                                     back=back, dtype=self._dtype(),
-                                    device=self.device)
+                                    devices=self.devices)
 
     def run_streamline(self, cfg: TrajectorySettings,
                        sample_points: np.ndarray) -> List[TrajectoryLine]:

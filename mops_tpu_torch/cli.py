@@ -57,7 +57,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
                     help="run on the card (default) or on the CPU")
     ap.add_argument("--devices", type=int, default=1,
-                    help="number of devices (one only: more raises)")
+                    help="split the particles over this many devices: "
+                         "cards 0..n-1, or n CPU shards with --device cpu")
     ap.add_argument("-o", "--out", default="out")
     args = ap.parse_args(argv)
 

@@ -104,6 +104,14 @@ def cell_center_velocity_zm(mesh: MPASMesh, zonal: torch.Tensor,
     return geo.enu_velocity_to_xyz(pos, zonal, meridional, 0.0)
 
 
+def vertex_velocity_zm(mesh: MPASMesh, vertex_zonal: torch.Tensor,
+                       vertex_meridional: torch.Tensor) -> torch.Tensor:
+    """Vertex-sited (nVertices, L) zonal/meridional -> (nVertices, L, 3)
+    XYZ velocity (reference src/GPU/SYCL/MPASOSolutionSYCL.cpp:433-485)."""
+    pos = mesh.vertex_xyz[:, None, :]
+    return geo.enu_velocity_to_xyz(pos, vertex_zonal, vertex_meridional, 0.0)
+
+
 def cell_center_velocity_rbf(mesh: MPASMesh,
                              normal_velocity: torch.Tensor) -> torch.Tensor:
     """Reconstruct (nCells, L, 3) cell-center velocity from edge-normal

@@ -222,11 +222,15 @@ def test_global_mops_functions_and_timing(mesh, raw_fields):
     mtt.MOPS_PrintTimingDetailed()
 
 
-def test_more_than_one_device_raises():
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        papi.MOPSApp().init("cpu", devices=2)
-    with pytest.raises(NotImplementedError):
-        mtt.MOPS_Init("cpu", devices=4)
+def test_more_than_one_device_raises(monkeypatch):
+    """More devices than the machine's cards raises with the count; it
+    never runs on fewer devices or falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(RuntimeError, match="2 devices asked for.* 1 CUDA"):
+        papi.MOPSApp().init("cuda", devices=2)
+    with pytest.raises(RuntimeError, match="4 devices asked for"):
+        mtt.MOPS_Init("cuda", devices=4)
 
 
 @pytest.mark.parametrize("entry", ["MOPS_Init", "Field", "pymops", "cli"])

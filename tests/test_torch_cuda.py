@@ -612,3 +612,84 @@ def test_api_lines_equal_direct_run(card, card_back, pathline):
     if pathline:
         np.testing.assert_array_equal(pts, np.stack([l.last_point
                                                      for l in want]))
+
+
+def _card_run(card, card_back, pathline, f32):
+    """Seeds, cells, settings and tables of a small multi-device run on the
+    card (float32 when ``f32``, the main path's dtype)."""
+    mesh, sol, dev = card
+    real = torch.float32 if f32 else torch.float64
+    seeds = mtt.seeding.generate_sample_points(mtt.SamplingSettings(
+        sample_range=(21, 21), lat_range=(-70, 70), lon_range=(-180, 180)))
+    cfg = mtt.TrajectorySettings(
+        delta_t=3600, simulation_duration=3600 * 24, record_t=3600 * 4,
+        particle_depths=np.linspace(10.0, 3000.0, len(seeds)).astype(
+            np.float32), fail_mode=mtt.FailMode.ZERO)
+    back = card_back.to(dev, real) if pathline else None
+    return (mesh.to(dev, real), sol.to(dev, real), back, seeds,
+            mtt.CellSearch(mesh).query(seeds), cfg, real)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pathline", [False, True],
+                         ids=["streamline", "pathline"])
+def test_sharded_on_the_card_equals_single_device(card, card_back, pathline):
+    """4 shards on one card: the single-device run bit for bit, and 4x its
+    window-kernel launches (chip_smoke.py phase 6a at a small size)."""
+    from mops_tpu_torch.parallel import run_advection_sharded
+    mesh, sol, back, seeds, cells, cfg, _ = _card_run(card, card_back,
+                                                      pathline, True)
+    dev = card[2]
+    fn = sk.fused_window_pathline_step if pathline \
+        else sk.fused_window_streamline_step
+    single = mtt.run_advection(mesh, sol, seeds, cells, cfg, back=back)
+    before = fn.launches, fn.repair_launches
+    got = run_advection_sharded(mesh, sol, seeds, cells, cfg,
+                                devices=[dev] * 4, back=back)
+    assert (fn.launches, fn.repair_launches) == \
+        (before[0] + 4 * cfg.n_steps, before[1] + 4 * cfg.n_steps)
+    for f in ("points", "velocities", "attrs", "final_position",
+              "final_depth", "alive", "window_misses"):
+        a, b = getattr(got, f), getattr(single, f)
+        assert (a is None) == (b is None), f
+        if a is not None:
+            assert torch.equal(a, b), f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_window", [True, False],
+                         ids=["window", "full_column"])
+@pytest.mark.parametrize("pathline", [False, True],
+                         ids=["streamline", "pathline"])
+def test_migrating_on_the_card_equals_single_device(card, card_back,
+                                                    pathline, use_window):
+    """8 shards on one card through the kernels (K3/K4 with their repair,
+    or K1/K2) against shard-local tables: particles migrate, none is
+    dropped, and every trajectory is the single-device run's bit for bit
+    (chip_smoke.py phase 6b/6c at a small size)."""
+    from mops_tpu_torch.parallel import reassemble, run_advection_migrating
+    mesh, sol, back, seeds, cells, cfg, real = _card_run(
+        card, card_back, pathline, True)
+    dev = card[2]
+    key = ("k2" if pathline else "k1") if not use_window else \
+        ("k4" if pathline else "k3")
+    fn = {"k1": sk.fused_streamline_step, "k2": sk.fused_pathline_step,
+          "k3": sk.fused_window_streamline_step,
+          "k4": sk.fused_window_pathline_step}[key]
+    single = mtt.run_advection(mesh, sol, seeds, cells, cfg, back=back,
+                               use_window=use_window)
+    before = fn.launches
+    res = run_advection_migrating(mesh, sol, seeds, cells, cfg,
+                                  devices=[dev] * 8, dtype=real, back=back,
+                                  migrate_every=3, use_window=use_window)
+    assert fn.launches == before + 8 * cfg.n_steps
+    assert int(res.dropped.sum()) == 0 and int(res.migrated.sum()) > 0
+    ids = res.final_ids.cpu().numpy()
+    assert sorted(ids[ids >= 0].tolist()) == list(range(len(seeds)))
+    points, vels, attrs, fpos, fdepth = reassemble(res, len(seeds), seeds)
+    assert torch.equal(points, single.points)
+    assert torch.equal(vels, single.velocities)
+    assert torch.equal(fpos, single.final_position)
+    assert torch.equal(fdepth, single.final_depth)
+    if pathline:
+        assert torch.equal(attrs, single.attrs)
