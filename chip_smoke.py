@@ -98,6 +98,36 @@ success):
        158-186): 20,000 cells, L20, 200,000 seeds, 100 steps of 3600 s,
        migrate_every 8, 8 shards: particle-RK4-steps/s and dropped.
 
+7. across processes (mops_tpu_torch.parallel.distributed), the agent and
+   the frontend, on the one card; workers are ``python3 chip_smoke.py
+   --phase7-worker ...`` processes that load phase 2's mesh, fields, seeds
+   and 2a's results from a temporary directory and the kernel library from
+   _build (neither is rebuilt), each killed at a timeout that fails the
+   phase:
+   7a. 2 ranks over gloo, both on the card, the streamline day through the
+       window path (run_advection(group=)): each rank's rows bit-equal to
+       2a's rows [start, stop), the whole gathered on rank 0 bit-equal to
+       2a, each rank's K3 and repair launches counted; wall time, each
+       rank's step loop, particle-RK4-steps/s;
+   7b. the same 2 ranks, 2 x 4 migrating shards at migrate_every 8: rank
+       0's reassembled records bit-equal to 2a, every id once, none
+       dropped; the all_to_all_single calls counted and timed (gloo
+       through pinned host buffers: nothing of NCCL);
+   7c. NCCL at world size 1 in this process, 8 shards at migrate_every 8:
+       every exchange an all_to_all_single over NCCL, the gathered result
+       bit-equal to 6b's migrate_every-8 run in every field; NCCL asked for
+       with two ranks on the card raises (init_distributed), and two raw
+       torch.distributed NCCL ranks on the card fail (NCCL's message
+       printed);
+   7d. NetCDF-3 files of a 20,000-cell L60 mesh and two snapshots, the
+       port's server in a thread: GET /api/status names cuda and the card;
+       POST /api/task runs a one-day streamline, a pathline and a
+       1201x601 remap job on the card (each success, its seconds and its
+       job process's launches printed); the streamline VTP holds n_lines x
+       (n_records + 1) points and the remap PNGs exist.
+   Phase 5a also requires the native host cell search (CellSearch.backend
+   "native") and times it once beside cKDTree at 3601x1801.
+
 The line before the card's name lists each kernel with its launches on
 its main path, its time and its plain version's time at the slice shape,
 its bound: the larger of the bytes the step must move (each input read
@@ -200,6 +230,23 @@ ATTR_NONZERO = 0.98
 # seeds, steps of 3600 s.
 PHASE6_BUDGET = 300
 CONFIG5 = (20_000, 20, 200_000, 100)
+# Phase 7: its budget in seconds (logged beside its time), the time a group
+# of worker processes (or a job the server runs) may take before it is
+# killed and the phase fails, and the time the raw NCCL pair on one card
+# may take (NCCL refuses it; a hang is killed and counted as refused).
+# 7d's data folder (cells, layers, as phase 5c's CLI run) and its requests
+# with the task each must route to.
+PHASE7_BUDGET = 150
+PHASE7_TIMEOUT = 300
+NCCL_PAIR_TIMEOUT = 60
+AGENT_MESH = (20_000, 60)
+AGENT_REQUESTS = (("a 1-day streamline at depth of 10 m", "streamline"),
+                  ("pathline between two snapshots", "pathline"),
+                  ("remap to a 1201x601 image at depth of 20 m", "remapping"))
+# Phase 6b's label of the run that 7c is held to.
+REF_6B = "6b migrating streamline, migrate_every=8, K3"
+# The step kernels' launch counters, as _counts() reads them.
+COUNT_KEYS = ("k1", "k2", "k3", "k3 repair", "k4", "k4 repair")
 
 
 def fail(msg):
@@ -443,6 +490,9 @@ def front_door(dev, mesh_h, sols, seeds, cfg, pcfg, last_points, kernels,
     log(f"[phase 5a] remap on the slice mesh at {REMAP_SHAPES}, f32 and f64, "
         f"with the pathline front's attributes")
     search = mtt.CellSearch(mesh_h)
+    log(f"  CellSearch backend: {search.backend}")
+    if search.backend != "native":
+        fail("the native host cell search did not build on this machine")
     fields = {real: mtt.Field(mesh_h, sols["front", real], device=dev,
                               dtype=real, _search=search)
               for real in (f32, f64)}
@@ -458,10 +508,33 @@ def front_door(dev, mesh_h, sols, seeds, cfg, pcfg, last_points, kernels,
     def kd_query(label, vis, kind, make_pixels):
         t = time.perf_counter()
         out = rm._pixel_cells(fields[f64], vis, kind, make_pixels)
-        times[f"5a {label} host KD query"] = time.perf_counter() - t
-        log(f"  {label} host KD query ({len(out[1])} pixels, cKDTree): "
-            f"{times[f'5a {label} host KD query']:.3f} s")
+        times[f"5a {label} host cell query"] = time.perf_counter() - t
+        log(f"  {label} host cell query ({len(out[1])} pixels, "
+            f"{search.backend}): {times[f'5a {label} host cell query']:.3f} s")
         return out
+
+    def native_vs_kdtree(label, pix, pcells):
+        """The native search and cKDTree on the same pixels, each timed
+        (build apart from query), their answers equal."""
+        row = {}
+        for backend, prefer in (("native", True), ("kdtree", False)):
+            t = time.perf_counter()
+            other = mtt.CellSearch(mesh_h, prefer_native=prefer)
+            t_build = time.perf_counter() - t
+            t = time.perf_counter()
+            got = other.query(pix)
+            row[backend] = {"build_s": t_build,
+                            "query_s": time.perf_counter() - t}
+            if other.backend != backend or not np.array_equal(got, pcells):
+                fail(f"{label}: the {backend} search's answers differ")
+        log(f"  {label}: host cell query, native "
+            f"{row['native']['query_s']:.3f} s (grid build "
+            f"{row['native']['build_s']:.3f} s) vs cKDTree "
+            f"{row['kdtree']['query_s']:.3f} s (tree build "
+            f"{row['kdtree']['build_s']:.3f} s), "
+            f"{row['kdtree']['query_s'] / row['native']['query_s']:.2f} x; "
+            f"the same cells")
+        return row
 
     for w, h, depth in REMAP_SHAPES:
         vis = mtt.VisualizationSettings(image_width=w, image_height=h,
@@ -470,7 +543,9 @@ def front_door(dev, mesh_h, sols, seeds, cfg, pcfg, last_points, kernels,
         pix, pcells = kd_query(label, vis, "remap",
                                lambda: rm._pixel_positions(vis))
         imgs, row = {}, {"pixels": w * h,
-                         "kd_query_s": times[f"5a {label} host KD query"]}
+                         "host_query_s": times[f"5a {label} host cell query"]}
+        if (w, h) == REMAP_SHAPES[0][:2]:
+            row["native_vs_kdtree"] = native_vs_kdtree(label, pix, pcells)
         for real, tag in ((f32, "f32"), (f64, "f64")):
             first = timed(f"5a {label} {tag} first call",
                           lambda: rm.run_remapping(fields[real], vis))
@@ -614,6 +689,58 @@ def front_door(dev, mesh_h, sols, seeds, cfg, pcfg, last_points, kernels,
     return remap_summary, api_summary
 
 
+def write_nc3_dataset(folder, mesh, raws):
+    """A data folder as the agent reads it, written with scipy (NetCDF-3,
+    the MPAS layout of tests/test_torch_io.py): ``mesh.nc`` with the mesh
+    variables and ``data_<t>.nc`` with snapshot t of ``raws`` (raw
+    NetCDF-named fields, one Time entry each)."""
+    import numpy as np
+    from scipy.io import netcdf_file
+
+    cpu = lambda t: t.detach().cpu().numpy()
+    n_layers = raws[0]["layerThickness"].shape[1]
+    dims = (("nCells", mesh.n_cells), ("nVertices", mesh.n_vertices),
+            ("nEdges", mesh.n_edges), ("maxEdges", mesh.max_edges),
+            ("vertexDegree", 3), ("TWO", 2), ("nVertLevels", n_layers),
+            ("nVertLevelsP1", n_layers + 1), ("Time", 1), ("StrLen", 64))
+    with netcdf_file(os.path.join(folder, "mesh.nc"), "w") as f:
+        for name, size in dims:
+            f.createDimension(name, size)
+        for pre, arr, dim in (("Cell", mesh.cell_xyz, "nCells"),
+                              ("Vertex", mesh.vertex_xyz, "nVertices"),
+                              ("Edge", mesh.edge_xyz, "nEdges")):
+            for k, ax in enumerate("xyz"):
+                f.createVariable(ax + pre, "d", (dim,))[:] = cpu(arr)[:, k]
+        f.createVariable("nEdgesOnCell", "i", ("nCells",))[:] = \
+            cpu(mesh.n_edges_on_cell)
+        for name, dim in (("verticesOnCell", ("nCells", "maxEdges")),
+                          ("cellsOnCell", ("nCells", "maxEdges")),
+                          ("cellsOnVertex", ("nVertices", "vertexDegree")),
+                          ("edgesOnCell", ("nCells", "maxEdges")),
+                          ("cellsOnEdge", ("nEdges", "TWO")),
+                          ("verticesOnEdge", ("nEdges", "TWO"))):
+            a = cpu(getattr(mesh, re.sub(r"([A-Z])", r"_\1", name).lower()))
+            f.createVariable(name, "i", dim)[:] = np.where(a < 0, 0, a + 1)
+        f.createVariable("refBottomDepth", "d", ("nVertLevels",))[:] = \
+            np.linspace(100.0, 4000.0, n_layers) \
+            if mesh.ref_bottom_depth is None else cpu(mesh.ref_bottom_depth)
+    for t, raw in enumerate(raws):
+        with netcdf_file(os.path.join(folder, f"data_{t:04d}.nc"), "w") as f:
+            for name, size in dims:
+                f.createDimension(name, size)
+            f.createVariable("bottomDepth", "d", ("nCells",))[:] = \
+                np.asarray(raw["bottomDepth"])
+            for name, arr in raw.items():
+                if name != "bottomDepth":
+                    levels = "nVertLevelsP1" if name == "vertVelocityTop" \
+                        else "nVertLevels"
+                    f.createVariable(name, "d", ("Time", "nCells", levels))[
+                        :] = np.asarray(arr)[None]
+            xtime = np.zeros((1, 64), dtype="S1")
+            xtime[0, :19] = list(f"0001-01-{t + 1:02d}_00:00:00".encode())
+            f.createVariable("xtime", "c", ("Time", "StrLen"))[:] = xtime
+
+
 def exchange_profile(run, smi):
     """Run ``run`` (a migrating run) once to warm up, then under
     torch.profiler with each exchange annotated: the exchanges' device time
@@ -675,7 +802,8 @@ def multi_device(dev, mesh_h, sols, seeds, cells, depths, cfg, pcfg, refs,
                  summary, kernels, reset_counts, timed, times, smi):
     """Phase 6: the sharded and migrating engines on the card, their shards
     all on ``dev``.  ``refs`` holds phase 2's RawTrajectories by kernel
-    (k3: 2a, k1: 2b, k4: 2c), ``summary`` phase 2's rates.  Returns the
+    (k3: 2a, k1: 2b, k4: 2c), ``summary`` phase 2's rates; 6b's
+    migrate_every-8 window run is added to it as "6b k8".  Returns the
     phase's summary (launches per sub-phase, rates, shares)."""
     import numpy as np
     import torch
@@ -813,6 +941,8 @@ def multi_device(dev, mesh_h, sols, seeds, cells, depths, cfg, pcfg, refs,
         row["launches"] = got
         row["rate"] = rate_line(label, times[label], steps, key)
         out[f"6b k{k} {key}"] = row
+        if (k, key) == (8, "k3"):
+            refs["6b k8"] = res          # phase 7c's reference
         del res
 
     # the exchange's share of a step: torch.profiler over 30 steps
@@ -940,6 +1070,500 @@ def multi_device(dev, mesh_h, sols, seeds, cells, depths, cfg, pcfg, refs,
     times["phase 6"] = time.perf_counter() - t_phase6
     log(f"  phase 6: {times['phase 6']:.3f} s (budget {PHASE6_BUDGET} s)")
     out["seconds"] = times["phase 6"]
+    return out
+
+
+def _worker_results(results, label):
+    """Each worker's "PHASE7 {json}" lines; fails on a worker that failed."""
+    out = []
+    for rank, (rc, stdout, stderr) in enumerate(results):
+        if rc != 0:
+            fail(f"{label}: worker {rank} exited {rc}:\n{stdout[-3000:]}\n"
+                 f"{stderr[-3000:]}")
+        out.append([json.loads(line[len("PHASE7 "):])
+                    for line in stdout.splitlines()
+                    if line.startswith("PHASE7 ")])
+    return out
+
+
+def _reset_counts():
+    """Every step kernel's launch counts to 0."""
+    from mops_tpu_torch.kernels import stage_kernel as sk
+    for fn in (sk.fused_streamline_step, sk.fused_pathline_step,
+               sk.fused_window_streamline_step,
+               sk.fused_window_pathline_step):
+        fn.launches = 0
+    sk.fused_window_streamline_step.repair_launches = 0
+    sk.fused_window_pathline_step.repair_launches = 0
+
+
+def _counts():
+    """The step kernels' launch counts (their wrappers' counters), keyed as
+    COUNT_KEYS."""
+    from mops_tpu_torch.kernels import stage_kernel as sk
+    w3, w4 = sk.fused_window_streamline_step, sk.fused_window_pathline_step
+    return dict(zip(COUNT_KEYS, (
+        sk.fused_streamline_step.launches, sk.fused_pathline_step.launches,
+        w3.launches, w3.repair_launches, w4.launches, w4.repair_launches)))
+
+
+def _sync(dev):
+    """Wait for ``dev`` (a card; the CPU has nothing to wait for)."""
+    import torch
+    if torch.device(dev).type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _timed_exchange(stats):
+    """Wrap migrate's block transport so that each call is counted and
+    timed between two synchronisations (stats["calls"], stats["s"])."""
+    from mops_tpu_torch.parallel import migrate
+    inner = migrate.exchange_blocks
+
+    def timed(send, group):
+        _sync(send.device)
+        t = time.perf_counter()
+        out = inner(send, group)
+        _sync(send.device)
+        stats["calls"] += 1
+        stats["s"] += time.perf_counter() - t
+        return out
+    migrate.exchange_blocks = timed
+    return inner
+
+
+def phase7_worker(args):
+    """One rank of phase 7a/7b (``args["mode"]`` "gloo"), or of the raw NCCL
+    pair on one card ("nccl-pair").  Prints its results as "PHASE7 {json}"
+    lines."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    rank, world = args["rank"], args["world"]
+    url = f"tcp://localhost:{args['port']}"
+    if args["mode"] == "nccl-pair":
+        # torch.distributed directly, past init_distributed's refusal
+        torch.cuda.set_device(0)
+        dist.init_process_group("nccl", init_method=url, world_size=world,
+                                rank=rank)
+        t = torch.ones(1, device="cuda:0")
+        dist.all_reduce(t)
+        torch.cuda.synchronize()
+        print("PHASE7 " + json.dumps({"all_reduce": float(t)}), flush=True)
+        dist.destroy_process_group()
+        return 0
+
+    import mops_tpu_torch as mtt
+    from mops_tpu_torch.mesh import MPASMesh
+    from mops_tpu_torch.parallel import (gather_migrating,
+                                         gather_trajectories,
+                                         init_distributed, rank_bounds,
+                                         reassemble, run_advection_migrating)
+    from mops_tpu_torch.parallel.distributed import transport
+    from mops_tpu_torch.solution import SolutionFields
+
+    torch.set_num_threads(2)
+    data = torch.load(os.path.join(args["dir"], "inputs.pt"),
+                      weights_only=True)
+    ref = torch.load(os.path.join(args["dir"], "ref_2a.pt"), mmap=True,
+                     weights_only=True)
+    group, devices = init_distributed(url, world, rank, backend="gloo",
+                                      devices=[args["device"]]
+                                      * args["per_rank"])
+    dev, f32 = devices[0], torch.float32
+    mesh = MPASMesh(**data["mesh"]).to(dev, f32)
+    sol = SolutionFields(**data["sol"]).to(dev)
+    seeds, cells = data["seeds"].numpy(), data["cells"].numpy()
+    n = len(seeds)
+    cfg = mtt.TrajectorySettings(
+        delta_t=args["dt"], simulation_duration=args["dt"] * args["steps"],
+        record_t=args["record"], particle_depths=data["depths"].numpy(),
+        fail_mode=mtt.FailMode.ZERO)
+    sync = lambda: _sync(dev)
+    fields = ("points", "velocities", "final_position", "final_depth",
+              "final_cell", "alive")
+    out = {"rank": rank, "transport": transport(group, dev)}
+
+    # 7a: this rank's slice through run_advection's window path, on one
+    # card; then the whole gathered on rank 0
+    _reset_counts()
+    sync()
+    t = time.perf_counter()
+    raw = mtt.run_advection(mesh, sol, seeds, cells, cfg, use_window=True,
+                            devices=[dev], group=group)
+    sync()
+    loop_s = time.perf_counter() - t
+    a, b = rank_bounds(n, group)
+    rows_equal = all(torch.equal(getattr(raw, f), ref[f][a:b].to(dev))
+                     for f in fields)
+    launches = _counts()
+    sync()
+    t = time.perf_counter()
+    whole = gather_trajectories(raw, n, group)
+    sync()
+    gather_s = time.perf_counter() - t
+    whole_equal = None if whole is None else all(
+        torch.equal(getattr(whole, f), ref[f].to(dev)) for f in fields)
+    out["7a"] = {"rows": [a, b], "loop_s": loop_s, "gather_s": gather_s,
+                 "launches": launches, "rows_equal": rows_equal,
+                 "whole_equal": whole_equal}
+    del raw, whole
+    print("PHASE7 " + json.dumps(out), flush=True)
+
+    # 7b: the migrating engine, this rank's shards of world x per_rank
+    stats = {"calls": 0, "s": 0.0}
+    from mops_tpu_torch.parallel import migrate
+    inner = _timed_exchange(stats)
+    _reset_counts()
+    try:
+        sync()
+        t = time.perf_counter()
+        res = run_advection_migrating(mesh, sol, seeds, cells, cfg,
+                                      devices=devices, dtype=f32,
+                                      migrate_every=args["migrate_every"],
+                                      use_window=True, group=group)
+        sync()
+        run_s = time.perf_counter() - t
+    finally:
+        migrate.exchange_blocks = inner
+    launches = _counts()
+    t = time.perf_counter()
+    whole = gather_migrating(res, group)
+    sync()
+    row = {"run_s": run_s, "gather_s": time.perf_counter() - t,
+           "launches": launches, "exchange_calls": stats["calls"],
+           "exchange_s": stats["s"],
+           "migrated": res.migrated.tolist(), "dropped": res.dropped.tolist()}
+    if whole is not None:
+        fids = whole.final_ids.cpu().numpy().ravel()
+        ids = fids[fids >= 0]
+        points, vels, _, fpos, fdepth = reassemble(whole, n, seeds)
+        row.update(
+            ids_once=bool(len(ids) == n and len(np.unique(ids)) == n),
+            dropped_total=int(whole.dropped.sum()),
+            migrated_total=int(whole.migrated.sum()),
+            equal={"points": torch.equal(points, ref["points"].to(dev)),
+                   "velocities": torch.equal(vels,
+                                             ref["velocities"].to(dev)),
+                   "final positions": torch.equal(
+                       fpos, ref["final_position"].to(dev)),
+                   "final depths": torch.equal(
+                       fdepth, ref["final_depth"].to(dev))})
+    print("PHASE7 " + json.dumps({"rank": rank, "7b": row}), flush=True)
+    dist.destroy_process_group()
+    return 0
+
+
+def multi_process(dev, mesh_h, sols, seeds, cells, depths, cfg, refs,
+                  timed, times, smi):
+    """Phase 7a-7c: the engines across processes on the one card.  ``refs``
+    holds phase 2a's RawTrajectories ("k3") and phase 6b's migrate_every-8
+    window run ("6b k8").  Returns the phases' summary."""
+    import dataclasses
+
+    import torch
+
+    from mops_tpu_torch.parallel import (gather_migrating, init_distributed,
+                                         run_advection_migrating)
+    from mops_tpu_torch.parallel.distributed import transport
+    from mops_tpu_torch.utils.subproc import free_port, run_workers
+
+    f32 = torch.float32
+    n, steps = len(seeds), cfg.n_steps
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        # the workers load phase 2's host mesh, fields, seeds and cells
+        # (not rebuilt: 21-29 s) and 2a's results, and the kernel library
+        # from _build (same source hash: not rebuilt)
+        t = time.perf_counter()
+        sol = sols["stream", f32].to("cpu")
+        torch.save({
+            "mesh": {f.name: getattr(mesh_h, f.name)
+                     for f in dataclasses.fields(mesh_h)},
+            "sol": {f.name: getattr(sol, f.name)
+                    for f in dataclasses.fields(sol)},
+            "seeds": torch.as_tensor(seeds), "cells": torch.as_tensor(cells),
+            "depths": torch.as_tensor(depths)},
+            os.path.join(tmp, "inputs.pt"))
+        torch.save({f: getattr(refs["k3"], f).cpu() for f in (
+            "points", "velocities", "final_position", "final_depth",
+            "final_cell", "alive")}, os.path.join(tmp, "ref_2a.pt"))
+        times["7 save inputs"] = time.perf_counter() - t
+        log(f"  phase 7 inputs saved for the workers: "
+            f"{times['7 save inputs']:.3f} s")
+
+        # ---- 7a/7b: 2 ranks over gloo, both on the card --------------------
+        world, per_rank, k_mig = 2, 4, 8
+        log(f"[phase 7a/7b] {world} processes over gloo, both on {dev}: the "
+            f"streamline day sharded (one slice a rank), then migrating "
+            f"({world} x {per_rank} shards, migrate_every={k_mig})")
+        port = free_port()
+        cmds = [[sys.executable, os.path.abspath(__file__), "--phase7-worker",
+                 json.dumps({"mode": "gloo", "rank": r, "world": world,
+                             "port": port, "dir": tmp, "per_rank": per_rank,
+                             "device": str(dev),
+                             "migrate_every": k_mig, "dt": int(cfg.delta_t),
+                             "steps": steps, "record": int(cfg.record_t)})]
+                for r in range(world)]
+        t = time.perf_counter()
+        results, timed_out = run_workers(cmds, PHASE7_TIMEOUT, tmp)
+        times["7ab wall"] = time.perf_counter() - t
+        if timed_out:
+            fail(f"7a/7b: a worker hung past {PHASE7_TIMEOUT} s (killed)")
+        rows = _worker_results(results, "7a/7b")
+        a_rows = [next(r["7a"] for r in rank if "7a" in r) for rank in rows]
+        b_rows = [next(r["7b"] for r in rank if "7b" in r) for rank in rows]
+        used = {next(r["transport"] for r in rank if "transport" in r)
+                for rank in rows}
+        log(f"  7a/7b: wall {times['7ab wall']:.3f} s for both (process "
+            f"start, CUDA set-up and the input load included); transport "
+            f"{sorted(used)}")
+        for r, row in enumerate(a_rows):
+            log(f"  7a rank {r}: rows {row['rows']}, step loop "
+                f"{row['loop_s']:.3f} s, gather {row['gather_s']:.3f} s, "
+                f"launches {row['launches']}; rows bit-equal to 2a's: "
+                f"{row['rows_equal']}" + ("" if row["whole_equal"] is None
+                                          else f"; the gathered whole "
+                                          f"bit-equal to 2a: "
+                                          f"{row['whole_equal']}"))
+            if not row["rows_equal"] or row["whole_equal"] is False:
+                fail(f"7a rank {r}: its rows differ from phase 2a's")
+            if row["launches"] != dict(dict.fromkeys(COUNT_KEYS, 0),
+                                       k3=steps, **{"k3 repair": steps}):
+                fail(f"7a rank {r}: launches {row['launches']}")
+        if a_rows[0]["whole_equal"] is not True:
+            fail("7a: rank 0 did not gather the whole")
+        loop = max(row["loop_s"] for row in a_rows)
+        out["7a"] = {"ranks": a_rows, "wall_s": times["7ab wall"],
+                     "rate": n * steps / loop}
+        log(f"  7a: {n * steps / loop:.6e} particle-RK4-steps/s over the "
+            f"slower rank's step loop ({loop:.3f} s; the two share the "
+            f"card) ({smi})")
+        n_ex = -(-steps // k_mig)
+        for r, row in enumerate(b_rows):
+            log(f"  7b rank {r}: run {row['run_s']:.3f} s, gather "
+                f"{row['gather_s']:.3f} s, launches {row['launches']}; "
+                f"{row['exchange_calls']} all_to_all_single calls "
+                f"({n_ex} exchanges x 2 payloads), "
+                f"{1e3 * row['exchange_s'] / max(1, n_ex):.3f} ms an "
+                f"exchange (gloo through pinned host buffers on one card, "
+                f"between two synchronisations: it says nothing of NCCL) "
+                f"({smi})")
+            want = dict(dict.fromkeys(COUNT_KEYS, 0), k3=per_rank * steps,
+                        **{"k3 repair": per_rank * steps})
+            if row["launches"] != want or row["exchange_calls"] != 2 * n_ex:
+                fail(f"7b rank {r}: launches {row['launches']} or "
+                     f"{row['exchange_calls']} collectives")
+        b0 = b_rows[0]
+        log(f"  7b: migrated {b0['migrated_total']}, dropped "
+            f"{b0['dropped_total']}, every id once {b0['ids_once']}; rank 0's "
+            f"reassembled records bit-equal to 2a: {b0['equal']}")
+        if not b0["ids_once"] or b0["dropped_total"] != 0 \
+                or b0["migrated_total"] == 0 or not all(b0["equal"].values()):
+            fail("7b: the migrating run across processes differs from 2a")
+        run = max(row["run_s"] for row in b_rows)
+        out["7b"] = {"ranks": b_rows, "rate": n * steps / run,
+                     "exchange_ms": [1e3 * row["exchange_s"] / max(1, n_ex)
+                                     for row in b_rows]}
+        log(f"  7b: {n * steps / run:.6e} particle-RK4-steps/s over the "
+            f"slower rank's run ({run:.3f} s, decomposition included) "
+            f"({smi})")
+
+        # ---- 7c: NCCL at world size 1, 8 shards on the card ---------------
+        label = "7c NCCL world 1, 8 shards, migrate_every=8"
+        log(f"[phase {label}] every exchange an all_to_all_single over NCCL")
+        group, devs = init_distributed(f"tcp://localhost:{free_port()}", 1,
+                                       0, backend="nccl", devices=[dev] * 8)
+        try:
+            stats = {"calls": 0, "s": 0.0}
+            from mops_tpu_torch.parallel import migrate
+            inner = _timed_exchange(stats)
+            _reset_counts()
+            try:
+                res = timed(label, lambda: run_advection_migrating(
+                    mesh_h.to(dev, f32), sols["stream", f32], seeds, cells,
+                    cfg, devices=devs, dtype=f32, migrate_every=8,
+                    use_window=True, group=group))
+            finally:
+                migrate.exchange_blocks = inner
+            got = _counts()
+            whole = gather_migrating(res, group)
+            ref = refs["6b k8"]
+            equal = {f.name: torch.equal(getattr(whole, f.name),
+                                         getattr(ref, f.name))
+                     for f in dataclasses.fields(ref)
+                     if getattr(ref, f.name) is not None}
+            used = transport(group, dev)
+        finally:
+            torch.distributed.destroy_process_group()
+        n_ex = -(-steps // 8)
+        log(f"  {label}: transport {used}; launches {got}; "
+            f"{stats['calls']} collectives, "
+            f"{1e3 * stats['s'] / n_ex:.3f} ms an exchange; "
+            f"{n * steps / times[label]:.6e} particle-RK4-steps/s (6b's "
+            f"in-process run: {times[REF_6B]:.3f} s); bit-equal to 6b's "
+            f"migrate_every-8 run: {equal} ({smi})")
+        if not all(equal.values()) or stats["calls"] != 2 * n_ex \
+                or used != "nccl" or got["k3"] != 8 * steps:
+            fail(f"{label}: differs from 6b or did not go through NCCL")
+        out["7c"] = {"launches": got, "exchange_ms": 1e3 * stats["s"] / n_ex,
+                     "rate": n * steps / times[label]}
+        del res, whole
+
+        # NCCL and two ranks on one card: refused up front, and by NCCL
+        try:
+            init_distributed(f"tcp://localhost:{free_port()}", 2, 0,
+                             backend="nccl")
+        except RuntimeError as err:
+            msg = str(err)
+        else:
+            fail("init_distributed put two NCCL ranks on one card")
+        log(f"  init_distributed(world 2, nccl) on one card raised: {msg}")
+        if "NCCL cannot put two ranks on one card" not in msg \
+                or torch.cuda.get_device_name(0) not in msg:
+            fail("init_distributed's refusal does not name the card")
+        port = free_port()
+        cmds = [[sys.executable, os.path.abspath(__file__), "--phase7-worker",
+                 json.dumps({"mode": "nccl-pair", "rank": r, "world": 2,
+                             "port": port})] for r in range(2)]
+        t = time.perf_counter()
+        results, timed_out = run_workers(cmds, NCCL_PAIR_TIMEOUT, tmp)
+        pair_s = time.perf_counter() - t
+        said = sorted({m.strip() for _, o, e in results for m in re.findall(
+            r"[^\n]*[Dd]uplicate GPU[^\n]*", o + e)})
+        log(f"  NCCL itself, two ranks on {dev} (torch.distributed "
+            f"directly): exit codes {[rc for rc, _, _ in results]}, "
+            f"{'hung until killed, ' if timed_out else ''}{pair_s:.3f} s; "
+            f"NCCL said: {said or 'no duplicate-GPU message'}")
+        if not timed_out and all(rc == 0 for rc, _, _ in results):
+            fail("NCCL ran two ranks on one card: init_distributed's refusal"
+                 " is wrong")
+        out["nccl_pair"] = {"returncodes": [rc for rc, _, _ in results],
+                            "timed_out": timed_out, "message": said}
+    return out
+
+
+def agent_front_end(dev, times, smi):
+    """Phase 7d: the port's server in a thread, three tasks run as jobs on
+    the card from NetCDF-3 files of a synthetic mesh.  The server's job
+    runner is wrapped to read each job process's launch counts."""
+    import urllib.request
+
+    import torch
+
+    import mops_tpu_torch as mtt
+    from mops_tpu_torch import agent
+    from mops_tpu_torch.frontend import serve
+    from mops_tpu_torch.utils.subproc import package_env
+
+    out = {}
+    n_cells, n_layers = AGENT_MESH
+    runner = ("import json, runpy, sys\n"
+              "runpy.run_path(sys.argv[1], run_name='__main__')\n"
+              "from chip_smoke import _counts\n"
+              "print('PHASE7 ' + json.dumps(_counts()))\n")
+    jobs = []
+
+    def counted_job(script):
+        proc = subprocess.run([sys.executable, "-c", runner, script],
+                              env=package_env(), capture_output=True,
+                              text=True, timeout=PHASE7_TIMEOUT)
+        jobs.append(proc)
+        return proc.returncode
+
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as work:
+        folder = os.path.join(work, "data")
+        os.makedirs(folder)
+        t = time.perf_counter()
+        mesh = mtt.synth.build_voronoi_mesh(n_cells, jitter=0.05,
+                                            n_layers=n_layers)
+        write_nc3_dataset(folder, mesh, [
+            mtt.synth.solid_body_fields(mesh, n_layers=n_layers, omega=w)
+            for w in (1e-5, 1.2e-5)])
+        times["7d data"] = time.perf_counter() - t
+        log(f"[phase 7d] agent and frontend on {dev}: {n_cells} cells, "
+            f"L{n_layers}, 2 snapshots written as NetCDF-3 in "
+            f"{times['7d data']:.3f} s")
+        os.chdir(work)
+        run_job, agent.run_job = agent.run_job, counted_job
+        srv = serve(port=0, output_dir="agent_outputs", browse_root=work,
+                    background=True)
+        base = f"http://127.0.0.1:{srv.server_address[1]}"
+        try:
+            with urllib.request.urlopen(base + "/api/status",
+                                        timeout=30) as r:
+                status = json.loads(r.read())
+            log(f"  GET /api/status: {status}")
+            if status["device"] != f"cuda:{torch.cuda.get_device_name(0)}" \
+                    or status["n_devices"] != torch.cuda.device_count():
+                fail("/api/status does not name the card")
+            for request, task in AGENT_REQUESTS:
+                body = json.dumps({"request": request, "data_folder": folder,
+                                   "dry_run": False}).encode()
+                req = urllib.request.Request(
+                    base + "/api/task", data=body,
+                    headers={"Content-Type": "application/json"})
+                t = time.perf_counter()
+                with urllib.request.urlopen(
+                        req, timeout=PHASE7_TIMEOUT + 30) as r:
+                    data = json.loads(r.read())
+                sec = time.perf_counter() - t
+                proc = jobs[-1]
+                launches = _worker_results([(proc.returncode, proc.stdout,
+                                             proc.stderr)], task)[0][-1]
+                done = [ln for ln in proc.stdout.splitlines()
+                        if "done ->" in ln]
+                log(f"  {task} ({request!r}): success {data['success']}, "
+                    f"{sec:.3f} s for the job (process start included); "
+                    f"launches in the job {launches}; {done} ({smi})")
+                if not data["success"] or data["task"] != task:
+                    fail(f"7d {task}: {data}")
+                out[task] = {"seconds": sec, "launches": launches,
+                             "config": data["config"]}
+                times[f"7d {task} job"] = sec
+        finally:
+            srv.shutdown()
+            srv.server_close()
+            agent.run_job = run_job
+            os.chdir(cwd)
+
+        sub = lambda task, name: os.path.join(
+            work, out[task]["config"]["output_subdir"], name)
+        scfg = out["streamline"]["config"]
+        n_rec = mtt.TrajectorySettings(
+            delta_t=scfg["delta_minutes"] * 60,
+            record_t=scfg["record_every_minutes"] * 60,
+            simulation_duration=scfg["duration_days"] * mtt.ONE_DAY).n_records
+        with open(sub("streamline", "streamline.vtp")) as f:
+            found = re.search(r'NumberOfPoints="(\d+)" NumberOfLines="(\d+)"',
+                              f.read(400))
+        n_pts, n_lines = map(int, found.groups()) if found else (0, 0)
+        pngs = [sub("remapping", f"remap_{c}.png")
+                for c in ("east", "north", "speed")]
+        have = {os.path.basename(p): os.path.getsize(p) for p in pngs
+                if os.path.exists(p)}
+        path_ok = os.path.getsize(sub("pathline", "pathline.vtp")) > 0
+        log(f"  streamline VTP: {n_pts} points, {n_lines} lines (expected "
+            f"{n_lines} x {n_rec + 1}); remap PNGs {have}; pathline VTP "
+            f"written {path_ok}")
+    steps = {"streamline": scfg["duration_days"] * 86400
+             // (scfg["delta_minutes"] * 60),
+             "pathline": 86400 // (out["pathline"]["config"]["delta_minutes"]
+                                   * 60)}
+    want = {"streamline": ("k3", steps["streamline"]),
+            "pathline": ("k4", steps["pathline"]), "remapping": (None, 0)}
+    for task, (key, k_steps) in want.items():
+        expect = dict.fromkeys(COUNT_KEYS, 0)
+        if key:
+            expect.update({key: k_steps, f"{key} repair": k_steps})
+        if out[task]["launches"] != expect:
+            fail(f"7d {task}: launches {out[task]['launches']}, expected "
+                 f"{expect}")
+    if n_lines == 0 or n_pts != n_lines * (n_rec + 1) or len(have) != 3 \
+            or min(have.values()) == 0 or not path_ok:
+        fail("7d: the jobs' outputs")
     return out
 
 
@@ -1540,7 +2164,15 @@ def main():
     multi_summary = multi_device(
         dev, mesh_h, sols, seeds, cells, depths, cfg, pcfg, refs, summary,
         kernels, reset_counts, timed, times, smi)
+
+    # ---- phase 7: across processes, the agent and the frontend ----------
+    t_phase7 = time.perf_counter()
+    process_summary = multi_process(dev, mesh_h, sols, seeds, cells, depths,
+                                    cfg, refs, timed, times, smi)
     del refs
+    process_summary["7d"] = agent_front_end(dev, times, smi)
+    times["phase 7"] = time.perf_counter() - t_phase7
+    log(f"  phase 7: {times['phase 7']:.3f} s (budget {PHASE7_BUDGET} s)")
     for key, repair_of in (("k1", "k3"), ("k2", "k4"), ("k3", None),
                            ("k4", None)):
         rows[key]["phase6_launches"] = {
@@ -1548,6 +2180,19 @@ def main():
                                          if repair_of else 0)
             for sub, row in multi_summary.items()
             if isinstance(row, dict) and "launches" in row}
+    # phase 7's launches, the ranks' and the jobs' processes summed
+    sum_ranks = lambda ranks: {k: sum(r["launches"][k] for r in ranks)
+                               for k in COUNT_KEYS}
+    phase7 = {"7a": sum_ranks(process_summary["7a"]["ranks"]),
+              "7b": sum_ranks(process_summary["7b"]["ranks"]),
+              "7c": process_summary["7c"]["launches"]}
+    phase7.update({f"7d {task}": row["launches"]
+                   for task, row in process_summary["7d"].items()})
+    for key, repair_of in (("k1", "k3"), ("k2", "k4"), ("k3", None),
+                           ("k4", None)):
+        rows[key]["phase7_launches"] = {
+            sub: c[key] + (c[f"{repair_of} repair"] if repair_of else 0)
+            for sub, c in phase7.items()}
 
     # ---- the kernels' bounds at the main paths' start inputs -------------
     bounds = {}
@@ -1569,6 +2214,7 @@ def main():
     log(json.dumps({"phase_seconds": times, "build_seconds": build_s,
                     "main_paths": summary, "remap": remap_summary,
                     "api": api_summary, "multi_device": multi_summary,
+                    "multi_process": process_summary,
                     "bounds_ms": {k: v[0] for k, v in bounds.items()},
                     "profile": profile_rows}))
     replaces = {"k1": "mops_tpu/pallas/stage_kernel.py:479",
@@ -1588,4 +2234,6 @@ def main():
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--phase7-worker"]:
+        sys.exit(phase7_worker(json.loads(sys.argv[2])))
     main()

@@ -13,7 +13,10 @@ run on the card takes by default), trajectory finalization, fixed-depth,
 fixed-layer and fixed-latitude remap (remap, torch ops over pixel chunks
 on the device), the Field binding, the MOPS_* API and MOPSApp, the pymops
 task classes, the PNG/VTI/VTP/text writers and the CLI
-(``python -m mops_tpu_torch.cli``).
+(``python -m mops_tpu_torch.cli``), the multi-device and multi-process
+engines (parallel; ``python -m mops_tpu_torch.parallel.dist_smoke``), the
+native host cell search (native, built with g++), the task agent (agent)
+and the web front end (``python -m mops_tpu_torch.frontend.server``).
 
 The entry points (``preprocess``, ``run_advection``, ``Field``,
 ``MOPS_Init``, the task classes, the CLI) run on the card; the CPU runs
@@ -73,7 +76,7 @@ from .api import (MOPS_ActiveAttribute, MOPS_AddAttribute,  # noqa: E402
                   MOPS_ResetTiming, MOPS_RunPathLine, MOPS_RunReGrid,
                   MOPS_RunRemapping, MOPS_RunStreamLine, MOPSApp, solution_id)
 from .cellsearch import BucketGrid, CellSearch  # noqa: E402
-from .config import EARTH_RADIUS  # noqa: E402
+from .config import EARTH_RADIUS, precision  # noqa: E402
 from .field import Field  # noqa: E402
 from .mesh import MPASMesh  # noqa: E402
 from .settings import (ONE_DAY, ONE_HOUR, ONE_MINUTE, ONE_MONTH,  # noqa: E402
@@ -84,3 +87,26 @@ from .settings import (ONE_DAY, ONE_HOUR, ONE_MINUTE, ONE_MONTH,  # noqa: E402
 from .solution import SolutionFields, preprocess  # noqa: E402
 from .trajectory import (finalize_trajectories,  # noqa: E402
                          remove_nan_trajectories_and_reindex)
+
+__version__ = "0.5.0"
+
+
+def _git_revision() -> str:
+    """The checkout's short git SHA, or "unknown" outside a git checkout
+    (the reference bakes it at configure time, CMakeLists.txt:77-100)."""
+    import os
+    import subprocess
+    try:
+        out = subprocess.run(
+            ["git", "rev-parse", "--short", "HEAD"],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=5)
+    except (OSError, subprocess.SubprocessError):
+        return "unknown"
+    return out.stdout.strip() or "unknown"
+
+
+def version_string() -> str:
+    """'<semver>+g<sha>' like the reference's MOPS_VERSION_FULL
+    (mops_tpu.version_string)."""
+    return f"{__version__}+g{_git_revision()}"

@@ -459,7 +459,7 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
                   use_window: Optional[bool] = None,
                   window: Optional[int] = None,
                   chunk: Optional[int] = None,
-                  devices=None) -> RawTrajectories:
+                  devices=None, group=None) -> RawTrajectories:
     """Run a full streamline (back=None) or pathline advection on ``device``:
     the card unless the caller passes device="cpu" (without a card a CUDA
     request raises).  The mesh and solution tables are moved there and cast
@@ -497,6 +497,13 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
     sees the same operations on the same values either way, so the
     results equal the single whole run's; they are concatenated in
     particle order on the first device.
+
+    ``group`` (a process group of parallel.distributed, every rank passing
+    the same full-size ``seeds`` and ``cells``) first splits the particle
+    axis over the ranks (``rank_bounds``): this rank runs its slice on its
+    ``devices`` as above and returns its rows, which equal rows
+    [start, stop) of the single-process run (``gather_trajectories`` puts
+    the whole on one rank).
     """
     devices = [resolve_device(d) for d in (devices or [device])]
     real = mesh.dtype if dtype is None else dtype
@@ -507,9 +514,13 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
     if chunk is not None and int(chunk) < 1:
         raise ValueError(f"chunk must be positive, got {chunk}")
     seeds = np.array(seeds)
-    n = len(seeds)
     cells = np.array(cells, dtype=np.int32)
-    depths = settings.effective_depths(n)
+    depths = settings.effective_depths(len(seeds))
+    if group is not None:
+        from .parallel.distributed import rank_bounds
+        a, b = rank_bounds(len(seeds), group)
+        seeds, cells, depths = seeds[a:b], cells[a:b], depths[a:b]
+    n = len(seeds)
 
     # mesh + solution tables on each distinct device in the particle dtype
     # (no-ops when they agree), packed once

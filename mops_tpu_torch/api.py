@@ -16,7 +16,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from . import advect, remap as remap_mod, seeding, trajectory
+from . import advect, config, remap as remap_mod, seeding, trajectory
 from .field import Field
 from .mesh import MPASMesh, resolve_device
 from .parallel.sharding import device_list
@@ -25,9 +25,6 @@ from .settings import (SamplingSettings, SaveType, TrajectoryLine,
                        VisualizeType)
 from .solution import SolutionFields, preprocess
 from .utils import TimerManager, timer
-
-_DTYPES = {"fp64": torch.float64, "fp32": torch.float32}
-
 
 def solution_id(time_stamp: str, timestep: int) -> int:
     """32-bit FNV-1a hash of "<timeStamp>_<timestep>" as a signed int
@@ -65,8 +62,7 @@ class MOPSApp:
         run over that many devices (run_advection's ``devices``): cards
         0..n-1, or n CPU shards with device="cpu"; more than the machine's
         cards raises."""
-        if precision not in _DTYPES:
-            raise ValueError(f"precision must be one of {sorted(_DTYPES)}")
+        config.precision(precision)          # raises on an unknown mode
         self.device = resolve_device(device)
         self.devices = device_list(devices, self.device.type) \
             if int(devices) > 1 else [self.device]
@@ -203,7 +199,7 @@ class MOPSApp:
             raise RuntimeError("MOPS app not Ready (call MOPS_End first)")
 
     def _dtype(self) -> torch.dtype:
-        return _DTYPES[self.precision]
+        return config.precision(self.precision).real
 
     def _field(self, front, back=None, search=None) -> Field:
         return Field(self.mesh, front, back, device=self.device,

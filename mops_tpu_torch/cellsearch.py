@@ -1,30 +1,48 @@
 """Particle -> cell assignment (mirror of mops_tpu.cellsearch).
 
 The reference builds a nanoflann KD-tree over cell centers and queries it on
-the host at seed time (src/Core/MPASOGrid.cpp:247-313).  scipy's cKDTree
-gives the same exact-L2 1-NN answers (CellSearch); BucketGrid is the
-search on the device: a coarse lat-lon bucket table built once on the
-host, queried with torch ops.
+the host at seed time and per remap pixel (src/Core/MPASOGrid.cpp:247-313).
+CellSearch answers the same exact-L2 1-NN queries on the host with the
+native bucket grid (native/, g++) or, without a compiler, scipy's
+cKDTree; BucketGrid is the search on the device: a coarse lat-lon bucket
+table built once on the host, queried with torch ops.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
+import os
+import pickle
 
 import numpy as np
 import torch
 from scipy.spatial import cKDTree
 
+from . import native
 from .advect import _relocate_packed, build_reloc_xyz
 from .mesh import MPASMesh
 
 
 class CellSearch:
-    """Exact 1-NN cell lookup over cell centers, on the host."""
+    """Exact 1-NN cell lookup over cell centers, on the host.
 
-    def __init__(self, mesh: MPASMesh):
+    Prefers the native bucket grid (``prefer_native``, as mops_tpu does),
+    and takes scipy's cKDTree where the native library does not build
+    (no compiler): both give the exact nearest cell, nanoflann's answer
+    (reference src/Core/MPASOGrid.cpp:247-313).  ``backend`` says which
+    ("native" or "kdtree").  With ``cache_dir`` the cKDTree is pickled
+    there and loaded on the next build over the same cells, like the
+    reference's KDTree.bin (:247-285)."""
+
+    def __init__(self, mesh: MPASMesh, prefer_native: bool = True,
+                 cache_dir=None):
         xyz = mesh.cell_xyz.detach().cpu().double().numpy()
-        self._tree = cKDTree(xyz)
+        self._native = native.NativeCellSearch(xyz) \
+            if prefer_native and native.load() is not None else None
+        self.backend = "kdtree" if self._native is None else "native"
+        self._tree = None if self._native is not None \
+            else _load_or_build_tree(xyz, cache_dir)
 
     def query(self, points) -> np.ndarray:
         """(N, 3) XYZ -> (N,) nearest cell ids (int32).
@@ -34,8 +52,33 @@ class CellSearch:
         if hasattr(points, "detach"):
             points = points.detach().cpu().numpy()
         pts = np.asarray(points, dtype=np.float64).reshape(-1, 3)
+        if self._native is not None:
+            return self._native.query(pts)
         _, idx = self._tree.query(pts, k=1)
         return idx.astype(np.int32)
+
+
+def _load_or_build_tree(xyz: np.ndarray, cache_dir) -> cKDTree:
+    """cKDTree over ``xyz``, loaded from (or pickled into) ``cache_dir``
+    under a key of the cells' shape and a sample of them
+    (mops_tpu/cellsearch.py:46-73); the build is the slow part at
+    multi-million-cell meshes."""
+    if not cache_dir:
+        return cKDTree(xyz)
+    key = hashlib.sha1(np.ascontiguousarray(xyz[::max(1, len(xyz) // 64)])
+                       .tobytes() + str(xyz.shape).encode()).hexdigest()[:16]
+    path = os.path.join(cache_dir, f"kdtree_{key}.pkl")
+    if os.path.exists(path):
+        # a file this class wrote
+        with open(path, "rb") as f:
+            return pickle.load(f)
+    tree = cKDTree(xyz)
+    os.makedirs(cache_dir, exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        pickle.dump(tree, f)
+    os.replace(tmp, path)
+    return tree
 
 
 @dataclasses.dataclass(frozen=True)

@@ -12,6 +12,12 @@ shard places its arrivals into its pool's free slots.  Halo rings number
 ``migrate_every``, so relocation between exchanges never leaves a shard's
 resident cells (a step moves a particle at most one ring).
 
+With a process group (parallel.distributed) the shards are spread over
+the ranks, each rank owning a contiguous range of them: the blocks bound
+for each rank travel in one ``all_to_all_single`` a payload
+(``exchange_blocks``), the counterpart of the JAX package's all_to_all
+over a mesh that spans processes.
+
 Capacity limits (send slots per destination, pool slots per shard) are
 explicit; a particle lost to either is counted in ``dropped``, never lost
 silently.  Records are tagged with particle ids and reassembled on id.
@@ -27,6 +33,7 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..advect import (Particles, advance, make_stepper, pathline_attrs,
                       resolve_window, seed_layers)
@@ -35,6 +42,7 @@ from ..mesh import MPASMesh
 from ..settings import TrajectorySettings
 from ..solution import SolutionFields
 from .decompose import decompose
+from .distributed import exchange_blocks, gather_blocks, same_on_every_rank
 from .sharding import _devices
 
 # Default send slots a destination: max(SEND_CAP_MIN, pool capacity // 4)
@@ -57,8 +65,9 @@ def _int_rows(n: int, device) -> torch.Tensor:
 
 @dataclasses.dataclass(frozen=True)
 class MigratingTrajectories:
-    """Per-shard-slot outputs stacked on the first device; reassemble by
-    particle id (see reassemble)."""
+    """Per-shard-slot outputs stacked on the first device (a rank's own
+    shards under a process group; gather_migrating stacks all of them);
+    reassemble by particle id (see reassemble)."""
 
     rec_pos: torch.Tensor             # (P, cap, R, 3)
     rec_vel: torch.Tensor             # (P, cap, R, 3)
@@ -187,17 +196,44 @@ def _arrive(sh: _Shard, pt: Particles, fpay, ipay) -> None:
     pt.alive = torch.where(placed, ins_i[:, 3] > 0, pt.alive)
 
 
-def _exchange(shards, parts, send_cap: int) -> None:
+def _across_ranks(sends, group):
+    """Each local shard's arrivals from every shard of every rank, in
+    global shard order: the local send stacks (P_local, P, send_cap, 4),
+    reordered so that the blocks bound for each rank are contiguous, go in
+    one all-to-all a payload."""
+    n_local, world = len(sends), dist.get_world_size(group)
+    d0 = sends[0][0].device
+    out = []
+    for k in (0, 1):                      # float payload, int payload
+        stack = torch.stack([s[k].to(d0) for s in sends])
+        cap = stack.shape[2]
+        stack = stack.view(n_local, world, n_local, cap, 4).transpose(0, 1)
+        recv = exchange_blocks(stack, group)   # (rank, src, dst, cap, 4)
+        out.append([recv[:, :, q].reshape(-1, 4) for q in range(n_local)])
+    return list(zip(*out))
+
+
+def _exchange(shards, parts, send_cap: int, group=None) -> None:
     """One migration over every shard: send blocks, then block q of every
-    shard p (in p order) to shard q's device, then placement."""
-    n_shards = len(shards)
-    sends = [_leave(p, sh, pt, n_shards, send_cap)
+    shard p (in global p order) to shard q, then placement.  Without a
+    group every shard is local and block q is copied to shard q's device;
+    with one, this rank's shards are a contiguous range of the global
+    shards and the blocks travel between ranks (_across_ranks)."""
+    world = 1 if group is None else dist.get_world_size(group)
+    first = 0 if group is None else dist.get_rank(group) * len(shards)
+    n_shards = world * len(shards)
+    sends = [_leave(first + p, sh, pt, n_shards, send_cap)
              for p, (sh, pt) in enumerate(zip(shards, parts))]
-    for q, (sh, pt) in enumerate(zip(shards, parts)):
+    if group is None:
+        arrivals = [[torch.cat([s[k][q].to(pt.pos.device, non_blocking=True)
+                                for s in sends]) for k in (0, 1)]
+                    for q, pt in enumerate(parts)]
+    else:
+        arrivals = _across_ranks(sends, group)
+    for sh, pt, (fpay, ipay) in zip(shards, parts, arrivals):
         dev = pt.pos.device
-        fpay = torch.cat([f[q].to(dev, non_blocking=True) for f, _ in sends])
-        ipay = torch.cat([i[q].to(dev, non_blocking=True) for _, i in sends])
-        _arrive(sh, pt, fpay, ipay)
+        _arrive(sh, pt, fpay.to(dev, non_blocking=True),
+                ipay.to(dev, non_blocking=True))
 
 
 def run_advection_migrating(mesh: MPASMesh, sol: SolutionFields,
@@ -210,7 +246,7 @@ def run_advection_migrating(mesh: MPASMesh, sol: SolutionFields,
                             migrate_every: int = 1,
                             use_kernel: bool = True,
                             use_window: Optional[bool] = None,
-                            exact_clamp: bool = True
+                            exact_clamp: bool = True, group=None
                             ) -> MigratingTrajectories:
     """Advection over a mesh decomposed into one longitude sector a device
     of ``devices`` (default: every card of the machine; entries may
@@ -227,9 +263,22 @@ def run_advection_migrating(mesh: MPASMesh, sol: SolutionFields,
     layer through the exchange.  The other arguments are run_advection's;
     each particle sees the single-device run's operations on the same
     values.
+
+    ``group`` (parallel.distributed; every rank passing the same full-size
+    inputs and as many ``devices``) spreads P = world x len(devices)
+    shards over the ranks: rank r owns shards [r * len(devices),
+    (r + 1) * len(devices)).  Every rank computes the same decomposition
+    and initial distribution on the host and builds tables and pools for
+    its own shards only; the result holds those shards (gather_migrating
+    stacks all P on one rank).
     """
     devices = _devices(devices)
+    first = 0
     n_shards = len(devices)
+    if group is not None:
+        same_on_every_rank(n_shards, group, "the number of local shards")
+        first = dist.get_rank(group) * n_shards
+        n_shards *= dist.get_world_size(group)
     k_mig = max(1, int(migrate_every))
     n_steps, n_rec = settings.n_steps, settings.n_records
     if n_steps <= 0 or n_rec <= 0:
@@ -265,7 +314,7 @@ def run_advection_migrating(mesh: MPASMesh, sol: SolutionFields,
             seeds_t, torch.as_tensor(cells, device=devices[0]), depths)
 
     steppers, shards, parts = [], [], []
-    for p, dev in enumerate(devices):
+    for p, dev in enumerate(devices, start=first):
         table_b = _local_table(dec, p, dev, dtype, "_b", n_attrs) \
             if pathline else None
         st = make_stepper(_local_mesh(dec, p, dev, dtype),
@@ -311,7 +360,7 @@ def run_advection_migrating(mesh: MPASMesh, sol: SolutionFields,
         for st, pt in zip(steppers, parts):
             advance(st, pt, i)
         if (i + 1) % k_mig == 0 or i == n_steps - 1:
-            _exchange(shards, parts, send_cap)
+            _exchange(shards, parts, send_cap, group)
 
     d0 = devices[0]
     stack = lambda vals: torch.stack([v.to(d0) for v in vals])
@@ -328,6 +377,23 @@ def run_advection_migrating(mesh: MPASMesh, sol: SolutionFields,
             pt.misses.sum() if n_window else torch.zeros((), device=d0)
             for pt in parts).to(torch.int32),
         migrated=stack(sh.sent for sh in shards).to(torch.int32))
+
+
+def gather_migrating(result: MigratingTrajectories, group, dst: int = 0):
+    """Every rank's shards of ``run_advection_migrating(..., group=group)``
+    stacked in global shard order on rank ``dst`` (on its result's
+    device), None on the other ranks.  The pools have equal capacity on
+    every rank, so every field has one shape."""
+    def whole(t):
+        if t is None:
+            return None
+        got = gather_blocks(t, group, dst)
+        return None if got is None else got.flatten(0, 1)
+
+    fields = {f.name: whole(getattr(result, f.name))
+              for f in dataclasses.fields(MigratingTrajectories)}
+    return None if fields["rec_pos"] is None \
+        else MigratingTrajectories(**fields)
 
 
 def reassemble(result: MigratingTrajectories, n_particles: int, seeds):

@@ -64,13 +64,15 @@ def run_advection_sharded(mesh: MPASMesh, front: SolutionFields,
                           back: Optional[SolutionFields] = None,
                           dtype: Optional[torch.dtype] = None,
                           use_kernel: bool = True,
-                          use_window: Optional[bool] = None
-                          ) -> RawTrajectories:
+                          use_window: Optional[bool] = None,
+                          group=None) -> RawTrajectories:
     """run_advection with the particle axis split over ``devices`` (default:
     every card of the machine; entries may repeat): one contiguous slice a
     device, its results equal to the single-device run's and concatenated
-    in particle order on the first device.  The other arguments are
-    run_advection's."""
+    in particle order on the first device.  With ``group`` the axis is
+    first split over the ranks and this rank's rows come back.  The other
+    arguments are run_advection's."""
     return run_advection(mesh, front, seeds, cells, settings, back=back,
                          dtype=dtype, use_kernel=use_kernel,
-                         use_window=use_window, devices=_devices(devices))
+                         use_window=use_window, devices=_devices(devices),
+                         group=group)

@@ -281,3 +281,40 @@ def solid_body_fields(mesh: MPASMesh,
         "temperature": temperature,
         "salinity": salinity,
     }
+
+
+def solid_body_normal_velocity(mesh: MPASMesh,
+                               n_layers: int = 8,
+                               omega: float = 1e-5,
+                               omega_decay: float = 0.5) -> np.ndarray:
+    """Edge-normal velocity (nEdges, L) of the solid-body field, for the RBF
+    reconstruction path (reference CalcCellCenterVelocity), as numpy
+    (mops_tpu.synth.solid_body_normal_velocity).
+
+    The per-edge normal direction follows the reference's convention: the
+    unit vector from the lower-id adjacent cell center to the higher-id one,
+    or from the lower-id cell to the edge midpoint on the boundary
+    (reference src/CPU/TBB/MPASOSolutionTBB.cpp:192-216).  n_e = v(edge).n.
+    """
+    edge = mesh.edge_xyz.detach().cpu().numpy()
+    r = np.linalg.norm(edge, axis=-1)
+    lat = np.arcsin(np.clip(edge[:, 2] / r, -1.0, 1.0))
+    lon = np.arctan2(edge[:, 1], edge[:, 0])
+    k = np.arange(n_layers)
+    omega_k = omega * omega_decay ** k
+    speed = omega_k[None, :] * (r * np.cos(lat))[:, None]     # (nE, L)
+    east = np.stack([-np.sin(lon), np.cos(lon), np.zeros_like(lon)], axis=-1)
+    v_xyz = speed[..., None] * east[:, None, :]               # (nE, L, 3)
+
+    coe = mesh.cells_on_edge.detach().cpu().numpy()
+    c0, c1 = coe[:, 0], coe[:, 1]
+    both = (c0 >= 0) & (c1 >= 0)
+    cmin = np.where(both, np.minimum(c0, c1), np.maximum(c0, c1))
+    cmax = np.maximum(c0, c1)
+    cell = mesh.cell_xyz.detach().cpu().numpy()
+    normal = np.where(both[:, None], cell[np.clip(cmax, 0, None)]
+                      - cell[np.clip(cmin, 0, None)],
+                      edge - cell[np.clip(cmin, 0, None)])
+    nlen = np.linalg.norm(normal, axis=-1, keepdims=True)
+    normal = normal / np.where(nlen == 0, 1.0, nlen)
+    return np.einsum("eld,ed->el", v_xyz, normal)
