@@ -38,7 +38,7 @@ import torch
 
 from .config import EPS_ZERO
 from .interp import wachspress_weights
-from .kernels.stage_kernel import (fused_pathline_step,
+from .kernels.stage_kernel import (column_instance, fused_pathline_step,
                                    fused_pathline_step_plain,
                                    fused_streamline_step,
                                    fused_streamline_step_plain,
@@ -48,11 +48,26 @@ from .kernels.stage_kernel import (fused_pathline_step,
 from .mesh import MPASMesh, resolve_device
 from .settings import CalcDirection, CalcMethod, FailMode, TrajectorySettings
 from .solution import SolutionFields
-from .step import (_clamp_profile, _layer_search_binary, _norm, _where0,
-                   window_starts)
+from .step import (_clamp_profile, _layer_search_binary,
+                   _layer_search_linear, _norm, _where0, window_starts)
 
 # Layers a window holds (mops_tpu's MOPS_WINDOW_W default).
 WINDOW_LAYERS = 8
+
+# The path the most recent run_advection call took (mops_tpu.advect's
+# LAST_RESOLVED, without its TPU table-layout keys): ``kernel`` the step
+# kernel each step launches ("k1".."k4"; on CPU tensors its plain version
+# stands in) or None on the plain path, ``window``/``n_window`` the layer
+# window, ``pathline``, ``n_attrs``, ``dtype``, ``instance`` the K1/K2
+# instance the step or its repair launches ("64" or "generic",
+# stage_kernel.column_instance; None on the plain path).  Tooling (the
+# bench) reads it instead of re-deriving the decision; the bench adds the
+# step's least bytes itself (step_cost, a pass over every particle), after
+# its timed run.
+LAST_RESOLVED: dict = {}
+
+# Particles step_cost takes at a time: bounds its (chunk, K, L) gathers.
+_COST_CHUNK = 1 << 18
 
 
 # ---------------------------------------------------------------------------
@@ -309,6 +324,87 @@ def seed_layers(mesh: MPASMesh, vertex_ztop: torch.Tensor, pos, cell,
     return _layer_search_binary(z, (-depth).to(pos.dtype)).to(torch.int32)
 
 
+def step_cost(mesh: MPASMesh, sols, seeds, cells, depths, n_attrs: int = 0,
+              n_window: int = 0):
+    """The least bytes one fused step must move and the operations it does,
+    at the start inputs ``seeds``, ``cells`` and ``depths`` of a run on
+    ``mesh`` and its snapshots ``sols`` (one: a streamline; front and back:
+    a pathline), all on one device in the run dtype: (bytes, operations).
+
+    Bytes: each input read once and each output written once.  Vertex rows
+    that several particles share count once: xyz (from the front table) and
+    the ztop every vertex an alive particle's cell uses, in each snapshot
+    (the whole column, or with ``n_window`` the window's layers at the start
+    position's window start plus the surface and bottom values), plus the
+    velocity (3), vertical velocity (1) and attribute values of each
+    distinct (vertex, layer) pair that the layers above and below the
+    particle's depth pick; pos, depth, nv and the nv vertex ids (and the
+    window start); the outputs.  The layers are those at the start position
+    (a stage whose position crosses a layer reads more, and a window miss
+    reads the full column, so this is a lower bound).  Operations: the
+    leading terms of the kernel's loops over four RK4 stages (geometry ~85
+    per vertex; per snapshot the profile 2*nv*(L or W) and the picks
+    2*nv*(8 + 2A)).  Particles are taken _COST_CHUNK at a time."""
+    dev, real = mesh.device, mesh.dtype
+    size = torch.finfo(real).bits // 8
+    pathline = len(sols) == 2
+    L = sols[0].vertex_ztop.shape[1]
+    n = len(seeds)
+    if n == 0:
+        return 0, 0.0
+
+    def union(acc, new):
+        new = torch.unique(new)
+        return new if acc is None else torch.unique(torch.cat([acc, new]))
+
+    verts, keys, zkeys = None, [None] * len(sols), [None] * len(sols)
+    ops, nv_sum = 0.0, 0
+    for a in range(0, n, _COST_CHUNK):
+        b = min(a + _COST_CHUNK, n)
+        cell = torch.as_tensor(cells[a:b], device=dev)
+        alive = (cell >= 0) & (cell < mesh.n_cells)
+        vids, nv_cell, _ = _gather_cell_vertices(
+            mesh, torch.clamp(cell, 0, mesh.n_cells - 1))
+        nv = torch.where(alive, nv_cell, 0)
+        valid = torch.arange(vids.shape[1], device=dev)[None, :] < nv[:, None]
+        vid = vids.long()
+        verts = union(verts, vid[valid])
+        pos = torch.as_tensor(seeds[a:b], device=dev).to(real)
+        dn = -torch.as_tensor(depths[a:b], device=dev).to(real)
+        w = wachspress_weights(pos, mesh.vertex_xyz[vid], nv_cell)
+        nvd = nv.double()
+        nv_sum += int(nv.sum())
+        lane_ops = 85 * nvd
+        if n_window:
+            z = _clamp_profile(torch.einsum("nk,nkl->nl", w,
+                                            sols[0].vertex_ztop[vid]), True)
+            s = window_starts(_layer_search_binary(z, dn), L, n_window).long()
+            lw = s[:, None, None] + torch.arange(n_window, device=dev)
+        for j, sol in enumerate(sols):
+            z = _clamp_profile(torch.einsum("nk,nkl->nl", w,
+                                            sol.vertex_ztop[vid]), True)
+            layer = _layer_search_linear(z, dn)[0] if pathline \
+                else _layer_search_binary(z, dn)
+            keys[j] = union(keys[j], torch.cat(
+                [(vid * L + (layer - 1)[:, None])[valid],
+                 (vid * L + layer[:, None])[valid]]))
+            if n_window:
+                zkeys[j] = union(zkeys[j], (vid[:, :, None] * L + lw)[valid])
+            lane_ops = lane_ops + 2 * nvd * ((n_window or L) + 8 + 2 * n_attrs)
+        ops += 4 * float(lane_ops.sum())
+    n_vert = int(verts.numel())
+    nbytes = n_vert * 3 * size
+    for j in range(len(sols)):
+        nbytes += (int(zkeys[j].numel()) + 2 * n_vert if n_window
+                   else n_vert * L) * size
+        nbytes += int(keys[j].numel()) * (3 + 1 + n_attrs) * size
+    nbytes += n * (4 * size + 4) + 4 * nv_sum                    # inputs
+    nbytes += n * (7 * size + 1 + (3 * size if n_attrs else 0))  # outputs
+    if n_window:
+        nbytes += n * (4 + 4 + 1)                # start in; layer, miss out
+    return nbytes, ops
+
+
 def new_particles(st: Stepper, pos, cell, depth, n_records: int,
                   layer=None) -> Particles:
     """Particles at their start: ``cell`` -1 (or beyond the mesh) marks a
@@ -427,6 +523,52 @@ def resolve_window(use_kernel: bool, use_window: Optional[bool],
     return min(n_layers, max(4, window)) if windowed else 0
 
 
+def prepare(mesh: MPASMesh, front: SolutionFields,
+            back: Optional[SolutionFields], settings: TrajectorySettings,
+            real: torch.dtype, device, use_kernel: bool = True,
+            exact_clamp: bool = True, use_window: Optional[bool] = None,
+            window: Optional[int] = None):
+    """(Stepper, snapshots) of a run on ``device``: the mesh and the
+    snapshots moved there in ``real`` (no-ops when they agree), their
+    tables packed once, the window as resolve_window decides; snapshots is
+    [front] or [front, back] on the device."""
+    mesh_d = mesh.to(device, real)
+    sols = [front.to(device, real)] + (
+        [back.to(device, real)] if back is not None else [])
+    st = make_stepper(mesh_d, *snapshot_tables(mesh_d, *sols), settings,
+                      use_kernel, exact_clamp, resolve_window(
+                          use_kernel, use_window, device,
+                          front.vertex_ztop.shape[1], window))
+    return st, sols
+
+
+def start_particles(st: Stepper, sols, seeds, cells, depths,
+                    n_records: int) -> Particles:
+    """new_particles on the stepper's device and dtype from host arrays,
+    with the window path's first layers (seed_layers on the front)."""
+    dev, real = st.table.device, st.table.dtype
+    pos = torch.as_tensor(seeds, device=dev).to(real)
+    cell = torch.as_tensor(cells, device=dev)
+    depth = torch.as_tensor(depths, device=dev)
+    layer = seed_layers(st.mesh, sols[0].vertex_ztop, pos, cell, depth) \
+        if st.n_window else None
+    return new_particles(st, pos, cell, depth, n_records, layer)
+
+
+def resolve_path(st: Stepper) -> dict:
+    """LAST_RESOLVED's record of a run through ``st``."""
+    kernel = None
+    if st.use_kernel:
+        kernel = ("k4" if st.pathline else "k3") if st.n_window \
+            else ("k2" if st.pathline else "k1")
+    return {"kernel": kernel, "window": bool(st.n_window),
+            "n_window": st.n_window, "pathline": st.pathline,
+            "n_attrs": st.n_attrs,
+            "dtype": str(st.table.dtype).removeprefix("torch."),
+            "instance": column_instance(st.n_layers) if st.use_kernel
+            else None}
+
+
 def particle_bounds(n: int, n_slices: int) -> np.ndarray:
     """Start of each of ``n_slices`` contiguous slices of n particles (the
     first n % n_slices slices one longer), then n."""
@@ -504,6 +646,8 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
     ``devices`` as above and returns its rows, which equal rows
     [start, stop) of the single-process run (``gather_trajectories`` puts
     the whole on one rank).
+
+    Every call records the path it took in LAST_RESOLVED.
     """
     devices = [resolve_device(d) for d in (devices or [device])]
     real = mesh.dtype if dtype is None else dtype
@@ -523,26 +667,16 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
     n = len(seeds)
 
     # mesh + solution tables on each distinct device in the particle dtype
-    # (no-ops when they agree), packed once
-    steppers = {}
-    for dev in dict.fromkeys(devices):
-        mesh_d = mesh.to(dev, real)
-        front_d = front.to(dev, real)
-        back_d = back.to(dev, real) if back is not None else None
-        steppers[dev] = make_stepper(
-            mesh_d, *snapshot_tables(mesh_d, front_d, back_d), settings,
-            use_kernel, exact_clamp, resolve_window(
-                use_kernel, use_window, dev, front.vertex_ztop.shape[1],
-                window)), front_d.vertex_ztop
+    steppers = {dev: prepare(mesh, front, back, settings, real, dev,
+                             use_kernel, exact_clamp, use_window, window)
+                for dev in dict.fromkeys(devices)}
+    LAST_RESOLVED.clear()
+    LAST_RESOLVED.update(resolve_path(steppers[devices[0]][0]))
 
     def start(dev, a, b):
-        st, ztop = steppers[dev]
-        pos = torch.as_tensor(seeds[a:b], device=dev).to(real)
-        cell = torch.as_tensor(cells[a:b], device=dev)
-        depth = torch.as_tensor(depths[a:b], device=dev)
-        layer = seed_layers(st.mesh, ztop, pos, cell, depth) \
-            if st.n_window else None
-        return st, new_particles(st, pos, cell, depth, n_rec, layer)
+        st, sols = steppers[dev]
+        return st, start_particles(st, sols, seeds[a:b], cells[a:b],
+                                   depths[a:b], n_rec)
 
     # each device's slice in pieces of at most ``size``: round r runs every
     # device's r-th piece side by side

@@ -39,6 +39,10 @@ K_MAX = 20
 L_MAX = 128
 A_MAX = 2
 W_MAX = 32
+# The full-column kernels (K1, K2, and the window kernels' repairs) have two
+# instances a dtype and form: one for columns of at most COLUMN_LT layers
+# (fewer registers a lane) and the generic one up to L_MAX.
+COLUMN_LT = 64
 
 _lib = None
 BUILD_LOG = ""
@@ -62,6 +66,13 @@ def pack_vertex_table(vertex_xyz, vertex_ztop, vertex_velocity,
 def table_width(n_layers: int, n_attrs: int = 0) -> int:
     """F of pack_vertex_table for L layers and A attributes."""
     return 3 + 4 * n_layers + n_layers + 1 + n_layers * n_attrs
+
+
+def column_instance(n_layers: int) -> str:
+    """The instance of K1/K2 that a column of ``n_layers`` layers launches:
+    "64" for L <= COLUMN_LT, else "generic" (launch_column in the source
+    picks by the same rule)."""
+    return "64" if n_layers <= COLUMN_LT else "generic"
 
 
 def build() -> Path:
@@ -512,3 +523,30 @@ def fused_window_pathline_step_plain(pos, depth_neg, nv, vids, s, table_f,
     return (new_pos, hvel, wvel, ok,
             torch.clamp(layer, 1, n_layers - 1).to(torch.int32), miss,
             attr if n_attrs else None)
+
+
+# The step wrappers' launch counters, as launch_counts reads them: K1-K4
+# and the window paths' masked K1/K2 repairs.
+COUNT_KEYS = ("k1", "k2", "k3", "k3 repair", "k4", "k4 repair")
+
+
+def _counters():
+    w3, w4 = fused_window_streamline_step, fused_window_pathline_step
+    return ((fused_streamline_step, "launches"),
+            (fused_pathline_step, "launches"), (w3, "launches"),
+            (w3, "repair_launches"), (w4, "launches"),
+            (w4, "repair_launches"))
+
+
+def launch_counts() -> dict:
+    """The step kernels' launch counts (their wrappers' counters), keyed as
+    COUNT_KEYS.  The K1/K2 instance a count launched is
+    column_instance(L) of its run."""
+    return {key: getattr(fn, attr)
+            for key, (fn, attr) in zip(COUNT_KEYS, _counters())}
+
+
+def reset_counts():
+    """Every step kernel's launch count to 0."""
+    for fn, attr in _counters():
+        setattr(fn, attr, 0)

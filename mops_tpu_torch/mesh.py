@@ -92,6 +92,35 @@ class MPASMesh:
     def dtype(self) -> torch.dtype:
         return self.cell_xyz.dtype
 
+    def validate(self) -> None:
+        """Structural invariants (mirrors MPASOGrid::checkAttribute,
+        reference src/Core/MPASOGrid.cpp:516-599, as mops_tpu's
+        MPASMesh.validate): raises AssertionError where one fails, and
+        ValueError (numpy's) on a mesh without cells or vertices."""
+        nc, nv, me = self.n_cells, self.n_vertices, self.max_edges
+
+        def check(ok, what):
+            if not ok:
+                raise AssertionError(f"mesh invariant failed: {what}")
+
+        check(tuple(self.n_edges_on_cell.shape) == (nc,),
+              "n_edges_on_cell is (nCells,)")
+        check(tuple(self.vertices_on_cell.shape) == (nc, me),
+              "vertices_on_cell is (nCells, maxEdges)")
+        check(tuple(self.cells_on_cell.shape) == (nc, me),
+              "cells_on_cell is (nCells, maxEdges)")
+        check(tuple(self.cells_on_vertex.shape) == (nv, 3),
+              "cells_on_vertex is (nVertices, 3)")
+        voc = self.vertices_on_cell.cpu().numpy()
+        check(voc.max() < nv and voc.min() >= -1,
+              "vertices_on_cell ids in [-1, nVertices)")
+        cov = self.cells_on_vertex.cpu().numpy()
+        check(cov.max() < nc and cov.min() >= -1,
+              "cells_on_vertex ids in [-1, nCells)")
+        neoc = self.n_edges_on_cell.cpu().numpy()
+        check((neoc >= 1).all() and (neoc <= me).all(),
+              "1 <= n_edges_on_cell <= maxEdges")
+
     def to(self, device=None, dtype: Optional[torch.dtype] = None) -> "MPASMesh":
         """Move every tensor to ``device``; cast the float tensors to
         ``dtype`` (index tensors stay int32)."""

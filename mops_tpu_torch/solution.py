@@ -184,6 +184,16 @@ class SolutionFields:
     def n_layers(self) -> int:
         return self.cell_ztop.shape[1]
 
+    def slim(self) -> "SolutionFields":
+        """Drop the cell-sited tables to one-row stubs (mops_tpu's
+        SolutionFields.slim).  Advection reads only the vertex fields, so a
+        run that only advects need not hold the cell tables on the card
+        (about 2.5 GB at 2M cells x L80 in float32); remap, regrid and
+        attribute-recording runs need the full object."""
+        return dataclasses.replace(
+            self, cell_ztop=self.cell_ztop[:1],
+            cell_velocity=self.cell_velocity[:1], cell_attrs={})
+
     def to(self, device=None, dtype: Optional[torch.dtype] = None
            ) -> "SolutionFields":
         """Move every table to ``device`` and cast it to ``dtype``."""

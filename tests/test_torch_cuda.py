@@ -693,3 +693,122 @@ def test_migrating_on_the_card_equals_single_device(card, card_back,
     assert torch.equal(fdepth, single.final_depth)
     if pathline:
         assert torch.equal(attrs, single.attrs)
+
+
+# --- the generic (L > 64) instances of K2 and K4, the L80 path ------------
+
+
+def _close_f32(got, want, flags, values):
+    """Kernel vs plain at float32 (chip_smoke.py's tolerances): the lanes
+    that agree on every flag within 2 m (4 ulp at Earth radius) in position
+    (output 0) and within 1e-4 of the largest magnitude in the other
+    ``values``; at most one lane (at most 1e-4 of them, rounded up) may
+    flip a flag, a rounding difference at a cell edge or a layer
+    interface."""
+    same = torch.ones_like(want[3])
+    for i in flags:
+        same &= got[i] == want[i]
+    assert int((~same).sum()) <= max(1, int(1e-4 * len(same)))
+    for i in values:
+        a, b = got[i][same], want[i][same]
+        assert torch.equal(torch.isnan(a), torch.isnan(b))
+        tol = 2.0 if i == 0 else 1e-4 * float(b.abs().nan_to_num(0).max())
+        assert float((a - b).abs().nan_to_num(0).max()) <= tol
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("L", [80, sk.L_MAX])
+@pytest.mark.parametrize("kernel", ["k2", "k4"])
+def test_generic_pathline_kernels_match_plain(card, kernel, L, dtype):
+    """K2 and K4 (with its masked K2 repair) at L80 and L_MAX, the generic
+    instance, against their plain versions, with 0 and 2 attributes, RK4
+    and Euler; float64 at test_pallas.py's tolerances, float32 at
+    chip_smoke.py's."""
+    _, _, dev = card
+    pos, dn, nv, vids, tf, tb, L = (
+        a.to(dtype) if torch.is_tensor(a) and a.is_floating_point() else a
+        for a in _wide_inputs("voronoi", L, dev, disturb=kernel == "k2"))
+    assert sk.column_instance(L) == "generic"
+    s = _window_starts(pos, dn, nv, vids, tf, L) if kernel == "k4" else None
+    alphas = (0.3, 0.305, 0.31)
+    for n_attrs in (0, 2):
+        F = sk.table_width(L, n_attrs)
+        tabs = (tf[:, :F].contiguous(), tb[:, :F].contiguous())
+        for euler in (False, True):
+            if kernel == "k2":
+                fn, plain = fused_pathline_step, fused_pathline_step_plain
+                args, flags, attr = (pos, dn, nv, vids, *tabs), (3,), 4
+                extra = (L, DT, alphas)
+            else:
+                fn, plain = (sk.fused_window_pathline_step,
+                             sk.fused_window_pathline_step_plain)
+                args, flags, attr = (pos, dn, nv, vids, s, *tabs), \
+                    (3, 4, 5), 6
+                extra = (L, W, DT, alphas)
+            # K2, or K4's masked K2 repair: the generic instance (above)
+            key = "k2" if kernel == "k2" else "k4 repair"
+            before = sk.launch_counts()[key]
+            got = fn(*args, *extra, euler=euler, n_attrs=n_attrs)
+            torch.cuda.synchronize()
+            assert sk.launch_counts()[key] == before + 1
+            want = plain(*args, *extra, euler=euler, n_attrs=n_attrs)
+            if dtype == torch.float64:
+                for a, b, tol in zip(got[:3], want[:3], (1e-6, 1e-10, 1e-12)):
+                    torch.testing.assert_close(a, b, rtol=0, atol=tol,
+                                               equal_nan=True)
+                for i in flags:
+                    assert torch.equal(got[i], want[i])
+                if n_attrs:
+                    torch.testing.assert_close(got[attr], want[attr], rtol=0,
+                                               atol=1e-8)
+            else:
+                _close_f32(got, want, flags,
+                           (0, 1, 2) + ((attr,) if n_attrs else ()))
+            assert (got[attr] is None) == (n_attrs == 0)
+            assert bool(got[3].any()) and not bool(got[3][:16].any())
+            if kernel == "k4":
+                assert 0 < int(got[5].sum()) < len(nv)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("use_window", [True, False],
+                         ids=["window", "full-column"])
+def test_l80_kernel_path_matches_oracle(card, use_window):
+    """The kernel path's float64 trajectories at L80 (K3 with its generic
+    masked K1 repair, or the generic K1) against the port's scalar oracle
+    (mops_tpu_torch.oracle, NumPy only: the reference where there is no
+    jax), at tests/test_advect.py's tolerances."""
+    from mops_tpu_torch.oracle import oracle_streamline
+    _, _, dev = card
+    L = 80
+    mesh = mtt.synth.build_voronoi_mesh(500, n_layers=L)
+    raw = mtt.synth.solid_body_fields(mesh, n_layers=L, w_scale=1e-3,
+                                      bathymetry_amp=0.5)
+    sol = mtt.preprocess(mesh, raw, device="cpu")
+    rng = np.random.default_rng(80)
+    v = rng.normal(size=(32, 3))
+    seeds = v / np.linalg.norm(v, axis=1, keepdims=True) * mtt.EARTH_RADIUS
+    cells = mtt.CellSearch(mesh).query(seeds)
+    cfg = mtt.TrajectorySettings(
+        delta_t=600, simulation_duration=600 * 6, record_t=1200,
+        particle_depths=np.linspace(10.0, 3000.0, 32).astype(np.float32))
+    # K1 at L80 is the generic instance: K3's repair, or every full step
+    key = "k3 repair" if use_window else "k1"
+    before = sk.launch_counts()[key]
+    got = mtt.run_advection(mesh, sol, seeds, cells, cfg, device=dev,
+                            use_window=use_window)
+    assert advect.LAST_RESOLVED["instance"] == "generic"
+    assert advect.LAST_RESOLVED["kernel"] == ("k3" if use_window else "k1")
+    assert sk.column_instance(L) == "generic"
+    assert sk.launch_counts()[key] == before + cfg.n_steps
+    pts, vels, final, depths = oracle_streamline(mesh, sol, seeds, cells, cfg)
+    np.testing.assert_allclose(got.points.cpu().numpy(), pts, rtol=0,
+                               atol=5e-6)
+    np.testing.assert_allclose(got.velocities.cpu().numpy(), vels, rtol=0,
+                               atol=1e-10)
+    np.testing.assert_allclose(got.final_position.cpu().numpy(), final,
+                               rtol=0, atol=5e-6)
+    np.testing.assert_allclose(got.final_depth.cpu().numpy(), depths,
+                               rtol=0, atol=1e-4)
