@@ -2,6 +2,7 @@
 """Smoke run of mops_tpu_torch on one CUDA card: build, check, run, gate.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --window-ab DIR   # K3/K4 against another checkout
 
 Phases (any failure exits non-zero; the last line is printed only on
 success):
@@ -22,6 +23,15 @@ success):
    kernel and K1's (K2's) masked repair of the miss lanes; every step
    kernel is timed in its Euler form too, to part a stage's cost from the
    rest).
+1b. the window kernels on rising columns (RISING_CASE, the bench's
+   crossing-regime case whose field has a vertex column rising above the
+   surface, at L60 and L80: K1/K2's L <= 64 and generic repair instances):
+   K3 and K4 at f32 and f64, RK4 and Euler, against their plain versions
+   and against K1 (K2) bit for bit on every lane, the flagged ones among
+   them; the lanes the clamp test flags and on how many of them the
+   window step alone (its arithmetic without the clamp test) parts from
+   the full step; the traced gate of the window path on the L60 case at
+   f32 and f64, which must find no lane parted from identical states.
 1c. the row-gather probe K5: its main path, ``python -m
    mops_tpu_torch.prof_dma`` at prof_dma.py's shape, driven with the counts
    set to 0 just before it; then the kernel against its plain version and
@@ -45,6 +55,11 @@ success):
        (4,320 steps), a record every 6 h;
    2d. the same through the full-column kernel, K2, and the two pathline
        runs held against each other.
+   On 2a and 2c: the edge and clamp misses' shares of particle-steps, and
+   an untimed run again with the clamp probe (ClampProbe): the lane-steps
+   only the clamp test flagged and on how many of them the window step
+   alone would have parted from the full step, its final positions
+   bit-equal to the timed run's.
 3. gate: the first 20 steps through both kernel paths against the plain
    torch path on the card, streamline and pathline, float32 and float64,
    by the bench's criterion (mops_tpu_torch.bench.gate_check: its share a
@@ -53,7 +68,7 @@ success):
    float32 and float64: the device's busy time, its idle share and the
    time per device kernel (PERF.md, "Where the time goes"); on the window
    paths the masked K1 (K2) repair launches' device time apart from K3's
-   (K4's).
+   (K4's), beside the edge and clamp misses' shares.
 5. the user's front door on the card, on the slice's mesh:
    5a. remap: run_remapping at 3601x1801 (the reference demo,
        CLI/main.cpp:137, at the CLI's default 10 m) and 1201x601 (BASELINE
@@ -147,7 +162,8 @@ success):
        LAST_RESOLVED's instance "generic"; steps/s, window misses, peak
        device memory, the two paths' final positions within 100 m on at
        least bench.GATE_SHARE of the lanes; the repair's device time a step
-       under torch.profiler;
+       under torch.profiler; the edge and clamp misses' shares; the clamp
+       probe's run;
    8c. mops_tpu_torch.scripts.baseline_configs 1-4 at full size (config 5
        is 6e), each JSON line printed, the outputs finite (config 4: 1M
        particles x 720 pathline steps, its final positions read back, no
@@ -218,6 +234,12 @@ PATH_RECORD = 6 * 3600
 # Layers per window of the window kernels (run_advection's default) and
 # lanes of the kernel check whose window is moved off their layer.
 WINDOW = 8
+# Phase 1b's rising-column case: the bench's crossing-regime case
+# (mops_tpu_torch.bench.build_case) of RISING_CASE cells and seeds at depths
+# 10..2,500 m, whose field has a vertex column rising above the surface, at
+# RISING_LAYERS (the L <= 64 and the generic repair instances).
+RISING_CASE = (3000, 2048)
+RISING_LAYERS = (60, 80)
 # Tolerance of the row-gather probe's float64 block sums against the plain
 # version's, relative to the sum of the block's magnitudes: the two add the
 # same values (exact in float64) in other orders, so they differ by
@@ -482,6 +504,22 @@ def packed(mesh, sol, n_attrs=0):
                              attrs)
 
 
+def start_windows(table, pos, dn, nv, vids, L):
+    """Window starts around each lane's layer at its position, as
+    run_advection places them (the full column's binary search on
+    ``table``'s clamped profile)."""
+    import torch
+
+    from mops_tpu_torch.interp import wachspress_weights
+    from mops_tpu_torch.step import (_clamp_profile, _layer_search_binary,
+                                     window_starts)
+    rows_ = table[vids.long()]
+    w = wachspress_weights(pos, rows_[..., :3], nv)
+    z = _clamp_profile(torch.einsum("nk,nkl->nl", w, rows_[..., 3:3 + L]),
+                       True)
+    return window_starts(_layer_search_binary(z, dn), L, WINDOW).contiguous()
+
+
 def kernel_check(key, name, call, plain, dt, real, smi, row, where,
                  flags=(3,), attr=None, timed_case=False, timed_calls=None):
     """Hold ``call`` against ``plain``; on the timed case, time both per
@@ -541,10 +579,7 @@ def check_kernels(meshes, sols, lanes, L, smi, record, where,
     import torch
 
     from mops_tpu_torch import advect
-    from mops_tpu_torch.interp import wachspress_weights
     from mops_tpu_torch.kernels import stage_kernel as sk
-    from mops_tpu_torch.step import (_clamp_profile, _layer_search_binary,
-                                     window_starts)
     f32, f64 = torch.float32, torch.float64
     seeds_chk, cells_chk, depth_chk, shift = lanes
 
@@ -561,13 +596,9 @@ def check_kernels(meshes, sols, lanes, L, smi, record, where,
         """Window starts around each lane's layer, as run_advection places
         them (timed), and the same moved a window away on some lanes so that
         they miss (checked)."""
-        rows_ = tab[vids.long()]
-        w = wachspress_weights(pos, rows_[..., :3], nv)
-        z = _clamp_profile(torch.einsum("nk,nkl->nl", w,
-                                        rows_[..., 3:3 + L]), True)
-        s = window_starts(_layer_search_binary(z, dn), L, WINDOW)
+        s = start_windows(tab, pos, dn, nv, vids, L)
         moved = s.long() + torch.as_tensor(shift, device=pos.device)
-        return s.contiguous(), torch.clamp(moved, 0, L - WINDOW).to(
+        return s, torch.clamp(moved, 0, L - WINDOW).to(
             torch.int32).contiguous()
 
     if alpha_sets is None:
@@ -576,6 +607,7 @@ def check_kernels(meshes, sols, lanes, L, smi, record, where,
     for real, tag in ((f32, "f32"), (f64, "f64")):
         pos, dn, nv, vids = lane_inputs(real)
         tab = packed(meshes[real], sols["stream", real])
+        rise = sk.table_rise(tab, L)
         s0, s = starts(pos, dn, nv, vids, tab)
         for euler in (False, True):
             name = f"{tag} {'euler' if euler else 'rk4'}"
@@ -588,25 +620,26 @@ def check_kernels(meshes, sols, lanes, L, smi, record, where,
                          timed_case="euler" if euler else True)
             kernel_check("k3", name,
                          lambda: sk.fused_window_streamline_step(
-                             pos, dn, nv, vids, s, tab, L, WINDOW, 120.0,
-                             euler=euler),
+                             pos, dn, nv, vids, s, tab, rise, L, WINDOW,
+                             120.0, euler=euler),
                          lambda: sk.fused_window_streamline_step_plain(
-                             pos, dn, nv, vids, s, tab, L, WINDOW, 120.0,
-                             euler=euler),
+                             pos, dn, nv, vids, s, tab, rise, L, WINDOW,
+                             120.0, euler=euler),
                          120.0, real, smi, record("k3", real), where,
-                         flags=(3, 4, 5),
+                         flags=(3, 4, 5, 6),
                          timed_case="euler" if euler else True,
                          timed_calls=(
                              lambda: sk.fused_window_streamline_step(
-                                 pos, dn, nv, vids, s0, tab, L, WINDOW,
+                                 pos, dn, nv, vids, s0, tab, rise, L, WINDOW,
                                  120.0, euler=euler),
                              lambda: sk.fused_window_streamline_step_plain(
-                                 pos, dn, nv, vids, s0, tab, L, WINDOW,
+                                 pos, dn, nv, vids, s0, tab, rise, L, WINDOW,
                                  120.0)))
-        del tab
+        del tab, rise
         for n_attrs in (0, 2):
             tf = packed(meshes[real], sols["front", real], n_attrs)
             tb = packed(meshes[real], sols["back", real], n_attrs)
+            rises = sk.table_rise(tf, L), sk.table_rise(tb, L)
             sp0, sp = starts(pos, dn, nv, vids, tf)
             for euler in (False, True):
                 for a_name, a1 in alpha_sets.items():
@@ -629,28 +662,411 @@ def check_kernels(meshes, sols, lanes, L, smi, record, where,
                                  timed_case=timed_case)
                     kernel_check("k4", name,
                                  lambda: sk.fused_window_pathline_step(
-                                     pos, dn, nv, vids, sp, tf, tb, L, WINDOW,
-                                     PATH_DT, alphas, euler=euler,
+                                     pos, dn, nv, vids, sp, tf, tb, *rises, L,
+                                     WINDOW, PATH_DT, alphas, euler=euler,
                                      n_attrs=n_attrs),
                                  lambda: sk.fused_window_pathline_step_plain(
-                                     pos, dn, nv, vids, sp, tf, tb, L, WINDOW,
-                                     PATH_DT, alphas, euler=euler,
+                                     pos, dn, nv, vids, sp, tf, tb, *rises, L,
+                                     WINDOW, PATH_DT, alphas, euler=euler,
                                      n_attrs=n_attrs),
                                  PATH_DT, real, smi, record("k4", real),
-                                 where, flags=(3, 4, 5),
-                                 attr=6 if n_attrs else None,
+                                 where, flags=(3, 4, 5, 6),
+                                 attr=7 if n_attrs else None,
                                  timed_case=timed_case,
                                  timed_calls=(
                                      lambda: sk.fused_window_pathline_step(
-                                         pos, dn, nv, vids, sp0, tf, tb, L,
-                                         WINDOW, PATH_DT, alphas,
+                                         pos, dn, nv, vids, sp0, tf, tb,
+                                         *rises, L, WINDOW, PATH_DT, alphas,
                                          euler=euler, n_attrs=n_attrs),
                                      lambda: sk.fused_window_pathline_step_plain(
-                                         pos, dn, nv, vids, sp0, tf, tb, L,
-                                         WINDOW, PATH_DT, alphas,
+                                         pos, dn, nv, vids, sp0, tf, tb,
+                                         *rises, L, WINDOW, PATH_DT, alphas,
                                          n_attrs=n_attrs)))
-            del tf, tb
+            del tf, tb, rises
         del pos, dn, nv, vids
+
+
+def window_alone(pos, dn, nv, vids, s, tables, rises, L, W, dt, euler,
+                 alphas=None, n_attrs=0):
+    """The window step alone on these lanes (step.window_streamline_step,
+    or window_pathline_step with ``alphas`` and two tables): the window's
+    arithmetic with no repair, which is what the window kernels gave a
+    lane before the clamp test flagged it.  Returns (new_pos, hvel, wvel,
+    ok)."""
+    import torch
+
+    from mops_tpu_torch import step
+    from mops_tpu_torch.kernels import stage_kernel as sk
+    rmin = [step.cell_rise(r, vids, nv) for r in rises]
+    vpos, _, cols_w, ends = sk._window_inputs(tables[0], vids, s, L, W,
+                                              n_attrs)
+    if alphas is None:
+        return step.window_streamline_step(cols_w, ends, s, L, pos, dn, nv,
+                                           vpos, dt, euler, rmin[0])[:4]
+    _, _, cols_bw, _ = sk._window_inputs(tables[1], vids, s, L, W, n_attrs)
+    a = tuple(torch.as_tensor(x, dtype=pos.dtype, device=pos.device)
+              for x in alphas)
+    return step.window_pathline_step(cols_w, cols_bw, ends, s, L, pos, dn,
+                                     nv, vpos, dt, a, euler, tuple(rmin),
+                                     n_attrs)[:4]
+
+
+def parted(alone, full):
+    """Lanes on which ``alone`` (new_pos, hvel, wvel, ok) parts from the
+    full step's ``full``: ok different, NaN in one only, new positions more
+    than F32_POS_TOL apart or velocities more than F32_REL_TOL of the full
+    step's largest apart (the float32 kernel check's tolerances)."""
+    scale = float(full[1].abs().nan_to_num(0).max()) if len(full[1]) else 0
+    nan = lambda t: t.isnan().any(dim=1)
+    return (alone[3] != full[3]) | (nan(alone[0]) != nan(full[0])) | (
+        (alone[0] - full[0]).norm(dim=1).nan_to_num(0) > F32_POS_TOL) | (
+        (alone[1] - full[1]).abs().amax(dim=1).nan_to_num(0)
+        > F32_REL_TOL * scale)
+
+
+class ClampProbe:
+    """The parent-equivalent count of window-path runs: while active,
+    advect's window steps call the wrappers as a run does, then step the
+    alive lanes that only the clamp test flagged again through the window
+    step alone (window_alone) and count them (``flagged``) and those on
+    which it parts from the step the run took (``differed``, parted): the
+    lane-steps on which the window kernels without the clamp test would
+    have left the full column.  A flagged step costs a host sync and a few
+    small torch ops, so the probe runs outside the timed runs."""
+
+    def __enter__(self):
+        from mops_tpu_torch import advect
+        self.flagged = self.differed = 0
+        self._saved = adv, k3, k4 = (advect.advance,
+                                     advect.fused_window_streamline_step,
+                                     advect.fused_window_pathline_step)
+        alive = {}
+
+        def advance(st, p, i):
+            alive["now"] = p.alive
+            return adv(st, p, i)
+
+        def count(out, args, tables, rises, L, W, dt, euler, alphas=None,
+                  n_attrs=0):
+            import torch
+            idx = torch.nonzero(out[6] & alive["now"])[:, 0]
+            if idx.numel():
+                lanes = [a[idx] for a in args]
+                alone = window_alone(*lanes, tables, rises, L, W, dt, euler,
+                                     alphas, n_attrs)
+                self.flagged += idx.numel()
+                self.differed += int(parted(alone, [
+                    t[idx] for t in out[:4]]).sum())
+
+        def window_streamline(pos, dn, nv, vids, s, table, rise, L, W, dt,
+                              euler=False):
+            out = k3(pos, dn, nv, vids, s, table, rise, L, W, dt,
+                     euler=euler)
+            count(out, (pos, dn, nv, vids, s), (table,), (rise,), L, W, dt,
+                  euler)
+            return out
+
+        def window_pathline(pos, dn, nv, vids, s, table_f, table_b, rise_f,
+                            rise_b, L, W, dt, alphas, euler=False,
+                            n_attrs=0):
+            out = k4(pos, dn, nv, vids, s, table_f, table_b, rise_f, rise_b,
+                     L, W, dt, alphas, euler=euler, n_attrs=n_attrs)
+            count(out, (pos, dn, nv, vids, s), (table_f, table_b),
+                  (rise_f, rise_b), L, W, dt, euler, alphas, n_attrs)
+            return out
+
+        advect.advance = advance
+        advect.fused_window_streamline_step = window_streamline
+        advect.fused_window_pathline_step = window_pathline
+        return self
+
+    def __exit__(self, *exc):
+        from mops_tpu_torch import advect
+        (advect.advance, advect.fused_window_streamline_step,
+         advect.fused_window_pathline_step) = self._saved
+
+
+def miss_shares(raw, n_steps):
+    """(edge, clamp) misses of a window-path run and their shares of its
+    particle-steps: edge misses are the window misses that the clamp test
+    did not flag alone."""
+    total = int(raw.window_misses.sum())
+    clamp = int(raw.window_clamp_misses.sum())
+    steps = raw.window_misses.numel() * n_steps
+    return {"edge": total - clamp, "clamp": clamp,
+            "edge_share": (total - clamp) / steps,
+            "clamp_share": clamp / steps}
+
+
+def miss_line(m):
+    return (f"window misses: edge {m['edge']} "
+            f"({100 * m['edge_share']:.4f}% of particle-steps), clamp "
+            f"{m['clamp']} ({100 * m['clamp_share']:.4f}%)")
+
+
+def rising_columns(dev, smi, timed):
+    """Phase 1b: the window kernels where raw ztop columns rise, on the
+    bench's crossing-regime case of RISING_CASE at each of RISING_LAYERS
+    (its field has a vertex column rising above the surface: the
+    window-path fault of ROADMAP §3), with a back snapshot at omega
+    1.2e-5.  At f32 and f64, RK4 and Euler, windows at each lane's start
+    layer as run_advection places them: K3 and K4 (2 attributes, mid-run
+    alphas) against their plain versions (compare_step; ok, layer, miss and
+    clamp flags) and against K1 (K2) on every lane bit for bit, the flagged
+    ones among them; the lanes the clamp test flags and on how many of them
+    the window step alone would part from the full step (``parted``).  Then
+    the traced gate (bench.gate, trace=True) of the window path on the first
+    L's case over 20 steps, f32 and f64: no lane may part from identical
+    states.  Returns the phase's summary."""
+    import numpy as np
+    import torch
+
+    import mops_tpu_torch as mtt
+    from mops_tpu_torch import advect, bench
+    from mops_tpu_torch.kernels import stage_kernel as sk
+    f32, f64 = torch.float32, torch.float64
+    full_of = {"k3": "K1", "k4": "K2"}
+    n_cells, n = RISING_CASE
+    depths = mtt.seeding.linear_depth_profile(n, 10, 2500)
+    alphas_mid = (PATH_STEPS // 2) / PATH_STEPS
+    out = {}
+    for L in RISING_LAYERS:
+        inst = sk.column_instance(L)
+        mesh_d, _, seeds, cells = timed(
+            f"1b build the crossing case L{L}", lambda: bench.build_case(
+                n_cells, L, n, device=dev, **bench.CROSSING))
+        mesh_h = mtt.synth.build_voronoi_mesh(n_cells, jitter=0.05, seed=0,
+                                              n_layers=L)
+        raws = [{k: np.asarray(v, np.float32) for k, v in
+                 mtt.synth.solid_body_fields(mesh_h, n_layers=L, omega=om,
+                                             **bench.CROSSING).items()}
+                for om in (1e-5, 1.2e-5)]
+        for real, tag in ((f32, "f32"), (f64, "f64")):
+            mesh = mesh_d.to(dev, real)
+            sols = [mtt.preprocess(mesh, raw, dtype=real, device=dev)
+                    for raw in raws]
+            vids, nv, _ = advect._gather_cell_vertices(
+                mesh, torch.as_tensor(cells, device=dev))
+            pos = torch.as_tensor(seeds, device=dev).to(real)
+            dn = -torch.as_tensor(depths, device=dev).to(real)
+            tab = packed(mesh, sols[0])
+            tf, tb = packed(mesh, sols[0], 2), packed(mesh, sols[1], 2)
+            rise = sk.table_rise(tab, L)
+            rises = sk.table_rise(tf, L), sk.table_rise(tb, L)
+            s = start_windows(tab, pos, dn, nv, vids, L)
+            alphas = advect.stage_alphas(alphas_mid, PATH_DT,
+                                         PATH_DT * PATH_STEPS, real)
+            for euler in (False, True):
+                name = f"L{L} ({inst} repair) {tag} " \
+                    f"{'euler' if euler else 'rk4'}"
+                for key in ("k3", "k4"):
+                    if key == "k3":
+                        args = (pos, dn, nv, vids, s, tab, rise, L, WINDOW,
+                                120.0)
+                        got = sk.fused_window_streamline_step(*args,
+                                                              euler=euler)
+                        want = sk.fused_window_streamline_step_plain(
+                            *args, euler=euler)
+                        full = sk.fused_streamline_step(
+                            pos, dn, nv, vids, tab, L, 120.0, euler=euler)
+                        pairs, dt, attr = list(zip(got[:4], full)), 120.0, None
+                        alone_kw = dict(tables=(tab,), rises=(rise,), dt=dt)
+                    else:
+                        args = (pos, dn, nv, vids, s, tf, tb, *rises, L,
+                                WINDOW, PATH_DT, alphas)
+                        got = sk.fused_window_pathline_step(
+                            *args, euler=euler, n_attrs=2)
+                        want = sk.fused_window_pathline_step_plain(
+                            *args, euler=euler, n_attrs=2)
+                        full = sk.fused_pathline_step(
+                            pos, dn, nv, vids, tf, tb, L, PATH_DT, alphas,
+                            euler=euler, n_attrs=2)
+                        pairs = list(zip(got[:4], full[:4])) + [
+                            (got[7], full[4])]
+                        dt, attr = PATH_DT, 7
+                        alone_kw = dict(tables=(tf, tb), rises=rises, dt=dt,
+                                        alphas=alphas, n_attrs=2)
+                    torch.cuda.synchronize()
+                    errs, tol, flips, outliers, passed, note = compare_step(
+                        got, want, real, dt, (3, 4, 5, 6), attr)
+                    same = torch.ones_like(got[3])
+                    for a, b in pairs:
+                        eq = a.nan_to_num(1.5) == b.nan_to_num(1.5)
+                        same &= eq if eq.ndim == 1 else eq.all(dim=1)
+                    miss, clamp = got[5], got[6]
+                    idx = torch.nonzero(clamp)[:, 0]
+                    lanes = [a[idx] for a in (pos, dn, nv, vids, s)]
+                    alone = window_alone(*lanes, L=L, W=WINDOW, euler=euler,
+                                         **alone_kw)
+                    gone = int(parted(alone, [t[idx] for t in got[:4]]).sum())
+                    row = {"edge": int((miss & ~clamp).sum()),
+                           "clamp": int(clamp.sum()), "parted": gone,
+                           "off_full": int((~same).sum()),
+                           "off_full_flagged": int((~same & miss).sum()),
+                           "flag_flips": flips, "beyond_tol": outliers}
+                    out[f"{key} {name}"] = row
+                    log(f"  1b {key} {name}: vs plain max|d new_pos| "
+                        f"{errs[0]:.3e} m (tol {tol[0]:.1e}), flag flips "
+                        f"{flips}, beyond tol {outliers}; lanes flagged: edge "
+                        f"{row['edge']}, clamp {row['clamp']} (the window "
+                        f"step alone parts from the full step on {gone}); "
+                        f"lanes off {full_of[key]} bit for bit "
+                        f"{row['off_full']} (flagged "
+                        f"{row['off_full_flagged']}) of {n}" + note)
+                    # at f32 one lane of the 2,048 may flip a flag or
+                    # exceed the tolerance (tests/test_torch_cuda.py's rule)
+                    passed = passed or (real == f32
+                                        and flips + outliers <= 1)
+                    if not passed or row["off_full"] or row["clamp"] == 0:
+                        fail(f"1b {key} {name}: the window kernel on rising "
+                             "columns")
+            del tab, tf, tb, rise, rises, pos, dn, nv, vids, s, sols, mesh
+        if L != RISING_LAYERS[0]:
+            continue
+        cfg = mtt.TrajectorySettings(
+            delta_t=120, simulation_duration=120 * 20, record_t=120 * 20,
+            particle_depths=depths, fail_mode=mtt.FailMode.ZERO)
+        for real, tag in ((f32, "f32"), (f64, "f64")):
+            mesh = mesh_d.to(dev, real)
+            sol = mtt.preprocess(mesh, raws[0], dtype=real, device=dev)
+            g = timed(f"1b traced gate L{L} {tag}", lambda: bench.gate(
+                mesh, sol, seeds, cells, cfg, dtype=real, device=dev,
+                use_window=True, trace=True))
+            log(f"  1b traced gate L{L} {tag}, window path: "
+                + bench.gate_line(g).lstrip("# ") + f" ({smi})")
+            out[f"gate L{L} {tag}"] = {
+                k: g[k] for k in ("share", "off", "identical_start",
+                                  "verified")}
+            if not g["verified"] or g["identical_start"]:
+                fail(f"1b traced gate L{L} {tag}")
+    return out
+
+
+def window_ab(other):
+    """``python3 chip_smoke.py --window-ab DIR``: K3 and K4 a launch, each
+    with its masked repair, of this checkout against the checkout in DIR
+    (say the parent commit, unpacked with git archive), in one process on
+    one card.  DIR's mops_tpu_torch is imported under another name, so each
+    library is built from its own source and both are loaded side by side.
+    The inputs are phase 1's timed ones: the slice shape, the kernel check's
+    lanes, windows at the main path's starts; K3 on the streamline field,
+    K4 on the pathline pair with two attributes at mid-run alphas; f32 and
+    f64.  CUDA events over 20 launches (prof_dma.event_ms), in the order
+    this, other, other, this.  A checkout whose window wrappers take no
+    first rises (one from before the clamp test) is called without them.
+    Then phase 4's runs of the window paths (PROFILE_STEPS steps) through
+    each checkout's run_advection under torch.profiler, in the same order:
+    the window kernel's and the masked repair's device time a step.
+    Prints a line a kernel and dtype, then one JSON object."""
+    import importlib
+    import importlib.util
+    import inspect
+    from pathlib import Path
+
+    import torch
+
+    import mops_tpu_torch as mtt
+    from mops_tpu_torch import advect, prof_dma
+    from mops_tpu_torch.kernels import stage_kernel as sk
+    from mops_tpu_torch.prof_dma import (BACK_OMEGA, FIELD_KW, PATH_OMEGA,
+                                         SLICE_LAYERS, event_ms)
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: the A/B needs a card")
+    pkg = Path(other).resolve() / "mops_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        "other_mops_tpu_torch", pkg / "__init__.py",
+        submodule_search_locations=[str(pkg)])
+    sys.modules[spec.name] = module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    osk = importlib.import_module(f"{spec.name}.kernels.stage_kernel")
+    smi = smi_line()
+    log(f"window A/B: this checkout against {pkg.parent} ({smi})")
+    with ThreadPoolExecutor(2) as pool:
+        for f in [pool.submit(m.build) for m in (sk, osk)]:
+            f.result()
+    dev, L = torch.device("cuda"), SLICE_LAYERS
+    mesh_h = prof_dma.slice_mesh()
+    seeds = prof_dma.slice_seeds()
+    cells = mtt.CellSearch(mesh_h).query(seeds)
+    depths = mtt.seeding.linear_depth_profile(len(seeds), 10, 500)
+    seeds_chk, cells_chk, depth_chk, _ = check_lanes(
+        seeds, cells, depths, mesh_h.cells_on_cell.numpy())
+    raws = {name: mtt.synth.solid_body_fields(
+        mesh_h, n_layers=L, **FIELD_KW, **kw) for name, kw in (
+            ("stream", {}), ("front", {"omega": PATH_OMEGA}),
+            ("back", {"omega": BACK_OMEGA}))}
+    out = {}
+    for real, tag in ((torch.float32, "f32"), (torch.float64, "f64")):
+        mesh = mesh_h.to(dev, real)
+        sols = {k: mtt.preprocess(mesh, raw, dtype=real)
+                for k, raw in raws.items()}
+        vids, nv, _ = advect._gather_cell_vertices(
+            mesh, torch.as_tensor(cells_chk, device=dev))
+        pos = torch.as_tensor(seeds_chk, device=dev, dtype=real)
+        dn = torch.as_tensor(depth_chk, device=dev, dtype=real)
+        tables = {"k3": (packed(mesh, sols["stream"]),),
+                  "k4": (packed(mesh, sols["front"], 2),
+                         packed(mesh, sols["back"], 2))}
+        alphas = advect.stage_alphas((PATH_STEPS // 2) / PATH_STEPS,
+                                     PATH_DT, PATH_DT * PATH_STEPS, real)
+        for key, tabs in tables.items():
+            s = start_windows(tabs[0], pos, dn, nv, vids, L)
+            rises = tuple(sk.table_rise(t, L) for t in tabs)
+            calls = {}
+            for name, mod in (("this", sk), ("other", osk)):
+                fn = mod.fused_window_streamline_step if key == "k3" \
+                    else mod.fused_window_pathline_step
+                params = inspect.signature(fn).parameters
+                extra = rises if "rise" in params or "rise_f" in params \
+                    else ()
+                rest = (L, WINDOW, 120.0) if key == "k3" \
+                    else (L, WINDOW, PATH_DT, alphas)
+                kw = {} if key == "k3" else {"n_attrs": 2}
+                args = (pos, dn, nv, vids, s, *tabs, *extra, *rest)
+                calls[name] = lambda fn=fn, args=args, kw=kw: fn(*args, **kw)
+            ms = {"this": [], "other": []}
+            for name in ("this", "other", "other", "this"):
+                ms[name].append(event_ms(calls[name], 20))
+            mean = {k: sum(v) / len(v) for k, v in ms.items()}
+            log(f"  {key} {tag}: this {ms['this']} ms, other {ms['other']} "
+                f"ms a launch with its repair; this / other "
+                f"{mean['this'] / mean['other']:.4f} ({smi})")
+            out[f"{key} {tag}"] = ms
+            del tabs, rises, calls
+        del tables, pos, dn, vids, nv
+        for key, kname, repair, pathline in (
+                ("k3", "window_streamline_kernel", "streamline_step_kernel",
+                 False),
+                ("k4", "window_pathline_kernel", "pathline_step_kernel",
+                 True)):
+            cfg = mtt.TrajectorySettings(
+                delta_t=PATH_DT if pathline else 120,
+                simulation_duration=(PATH_DT if pathline else 120)
+                * PROFILE_STEPS, record_t=(PATH_DT if pathline else 120) * 3,
+                particle_depths=depths, fail_mode=mtt.FailMode.ZERO)
+            prof = {"this": [], "other": []}
+            for name in ("this", "other", "other", "this"):
+                pkg_ = mtt if name == "this" else module
+
+                def run():
+                    return pkg_.run_advection(
+                        mesh, sols["front" if pathline else "stream"],
+                        seeds, cells, cfg,
+                        back=sols["back"] if pathline else None,
+                        use_window=True)
+                run()
+                _, _, per_name, _ = device_breakdown(run)
+                prof[name].append([
+                    sum(v for nm, v in per_name.items() if kname in nm)
+                    / PROFILE_STEPS,
+                    sum(v for nm, v in per_name.items() if repair in nm)
+                    / PROFILE_STEPS])
+            log(f"  {key} {tag}, the main path's first {PROFILE_STEPS} "
+                f"steps under torch.profiler, [window kernel, repair] ms a "
+                f"step: this {prof['this']}, other {prof['other']} ({smi})")
+            out[f"{key} {tag} profile"] = prof
+        del sols, mesh
+    log(json.dumps({"window_ab": out, "smi": smi}))
 
 
 def front_door(dev, mesh_h, sols, seeds, cfg, pcfg, last_points, kernels,
@@ -1852,11 +2268,13 @@ def reference_scale(dev, rows, ptxas, timed, times, smi):
         # K1 at L80 launches its generic instance (column_instance, checked
         # above): the repairs on the window path, every step on the full
         generic = launches["k3 repair"] + launches["k1"]
+        edge = rec["window_misses"] - rec["window_clamp_misses"]
         log(f"  case A {label}: {rec['steps_per_s']:.6e} particle-RK4-"
-            f"steps/s ({rec['elapsed_s']} s), window misses "
-            f"{rec['window_misses']} "
-            f"({100 * rec['window_misses'] / (n * REFSCALE_STEPS):.4f}% of "
-            f"particle-steps), peak device memory {rec['peak_gb']:.3f} GB, "
+            f"steps/s ({rec['elapsed_s']} s), window misses: edge {edge} "
+            f"({100 * edge / (n * REFSCALE_STEPS):.4f}% of particle-steps), "
+            f"clamp {rec['window_clamp_misses']} ("
+            f"{100 * rec['window_clamp_misses'] / (n * REFSCALE_STEPS):.4f}"
+            f"%), peak device memory {rec['peak_gb']:.3f} GB, "
             f"launches {launches} ({generic} of the generic K1), instance "
             f"{rec['path']['instance']}, step "
             f"{rec['path']['step_bytes'] / 1e6:.3f} MB; f32 gate share "
@@ -1885,16 +2303,29 @@ def reference_scale(dev, rows, ptxas, timed, times, smi):
     if share < bench.GATE_SHARE[f32]:
         fail("8b: the window path left the full-column path")
     out["8b window_vs_full_within_100m"] = share
+    with ClampProbe() as probe:
+        timed("8b window path, clamp probe", lambda: mtt.run_advection(
+            meshes[f32], case.sols[f32], case.seeds, case.cells, cfg,
+            dtype=f32, device=dev, use_window=True))
+    clamp = out["8b window"]["window_clamp_misses"]
+    log(f"  the clamp probe's run: {probe.flagged} lane-steps flagged by the "
+        f"clamp test alone (the timed run counted {clamp}), on "
+        f"{probe.differed} of them the window step alone would have parted "
+        "from the full step")
+    if probe.flagged != clamp:
+        fail("8b: the clamp probe's run")
+    out["8b clamp probe"] = {"flagged": probe.flagged,
+                             "parted": probe.differed}
     # the window path's masked K1 repair at L80 (the generic masked
     # instance, which spills at f64), its device time a step apart from
     # K3's under torch.profiler over PROFILE_STEPS steps after a warm-up
     pcfg = rs.streamline_settings(PROFILE_STEPS)
     for real, tag, ctype in ((f32, "f32", "float"), (f64, "f64", "double")):
         def run():
-            mtt.run_advection(meshes[real], case.sols[real], case.seeds,
-                              case.cells, pcfg, dtype=real, device=dev,
-                              use_window=True)
-        run()
+            return mtt.run_advection(meshes[real], case.sols[real],
+                                     case.seeds, case.cells, pcfg,
+                                     dtype=real, device=dev, use_window=True)
+        shares = miss_shares(run(), PROFILE_STEPS)
         busy, window, per_name, _ = device_breakdown(run)
         repair = f"streamline_step_kernel<{ctype}, {sk.L_MAX}, true>"
         r_ms = sum(ms for nm, ms in per_name.items() if repair in nm)
@@ -1903,11 +2334,13 @@ def reference_scale(dev, rows, ptxas, timed, times, smi):
         log(f"  {tag} window path at L{L} under torch.profiler: device busy "
             f"{busy:.3f} ms of a {window:.3f} ms window, K3 {k_ms:.3f} ms, "
             f"masked repair {repair} {r_ms:.3f} ms, "
-            f"{1e3 * r_ms / PROFILE_STEPS:.2f} us a step ({smi})")
+            f"{1e3 * r_ms / PROFILE_STEPS:.2f} us a step; "
+            f"{miss_line(shares)} ({smi})")
         if r_ms <= 0.0 or k_ms <= 0.0:
             fail(f"8b profile {tag}: no K3 or no generic repair on the device")
         rows["k1"]["L80"].setdefault("repair_ms_per_step", {})[tag] = \
             r_ms / PROFILE_STEPS
+        out[f"8b profile {tag} misses"] = shares
     for key in ("k2", "k4"):
         rows[key]["L80"]["launches"] = 0        # kernel checks only
     del case, meshes, sols, finals
@@ -2095,6 +2528,10 @@ def main():
         seeds, cells, depths, mesh_h.cells_on_cell.numpy()), L, smi,
         lambda key, real: rows[key] if real == f32 else None,
         "the slice shape")
+    log("[phase 1b] the window kernels on rising columns: the crossing case "
+        f"of {RISING_CASE[0]} cells and {RISING_CASE[1]} seeds at "
+        f"L{RISING_LAYERS}")
+    rising = rising_columns(dev, smi, timed)
 
     # ---- phase 1c: the row-gather probe (K5) ----------------------------
     log("[phase 1c] row-gather probe K5: its main path (python -m "
@@ -2215,6 +2652,24 @@ def main():
             f"particle-RK4-steps/s end to end; window misses {misses} "
             f"({100 * misses / (n * run_cfg.n_steps):.4f}% of particle-steps)"
             f" ({smi})")
+        if windowed:
+            shares = miss_shares(raw_traj, run_cfg.n_steps)
+            with ClampProbe() as probe:
+                again = timed(f"run_advection {label}, clamp probe",
+                              lambda: mtt.run_advection(
+                                  mesh32, front, seeds, cells, run_cfg,
+                                  back=back, use_window=True))
+            shares.update(probe_flagged=probe.flagged,
+                          parted=probe.differed)
+            same = torch.equal(again.final_position, raw_traj.final_position)
+            log(f"  {miss_line(shares)}; the clamp probe's run: "
+                f"{probe.flagged} lane-steps flagged by the clamp test alone, "
+                f"on {probe.differed} of them the window step alone would "
+                f"have parted from the full step; final positions bit-equal "
+                f"to the timed run's: {same} (repair time a step: phase 4)")
+            if not same or probe.flagged != shares["clamp"]:
+                fail(f"{label}: the clamp probe's run")
+            del again
         if counts[key] != run_cfg.n_steps or sum(counts.values()) \
                 != counts[key] or (windowed and repairs != run_cfg.n_steps):
             fail(f"launch counts {counts}, repairs {repairs}: {key} != "
@@ -2226,6 +2681,8 @@ def main():
             rows[key]["repair_launches"] = repairs
         summary[key] = {"particle_rk4_steps_per_s": rate,
                         "window_misses": misses}
+        if windowed:
+            summary[key]["misses"] = shares
         attrs = raw_traj.attrs.cpu().numpy() if pathline else None
         lines = timed(f"finalize_trajectories {label}",
                       lambda: mtt.finalize_trajectories(
@@ -2354,9 +2811,9 @@ def main():
             back = sols["back", real] if pathline else None
 
             def run():
-                mtt.run_advection(mesh, sol, seeds, cells, pcfg_, back=back,
-                                  use_window=windowed)
-            run()
+                return mtt.run_advection(mesh, sol, seeds, cells, pcfg_,
+                                         back=back, use_window=windowed)
+            warm = run()
             busy, window, per_name, gap = device_breakdown(run)
             top = sorted(per_name.items(), key=lambda kv: -kv[1])
             k_ms = sum(ms for name, ms in per_name.items() if kname in name)
@@ -2367,13 +2824,15 @@ def main():
                 else "streamline_step_kernel"
             r_ms = sum(ms for name, ms in per_name.items() if repair in name) \
                 if windowed else 0.0
+            shares = miss_shares(warm, PROFILE_STEPS) if windowed else None
             log(f"  {tag}{label}: device busy {busy:.3f} ms of a "
                 f"{window:.3f} ms window, idle share "
                 f"{100 * (1 - busy / window):.2f}%; {kname} {k_ms:.3f} ms "
                 f"({100 * k_ms / busy:.2f}% of busy)"
                 + (f"; masked repair {repair} {r_ms:.3f} ms, "
-                   f"{1e3 * r_ms / PROFILE_STEPS:.2f} us a step"
-                   if windowed else "") + f" ({smi})")
+                   f"{1e3 * r_ms / PROFILE_STEPS:.2f} us a step; "
+                   + miss_line(shares) if windowed else "") + f" ({smi})")
+            del warm
             log(f"    longest idle gap {gap[0]:.3f} ms at {gap[1]:.3f} ms "
                 f"into the window, before {gap[2][:60]}")
             for name, ms in top[:8]:
@@ -2383,7 +2842,8 @@ def main():
                 "longest_gap_ms": gap[0],
                 "top": [[nm[:90], ms] for nm, ms in top[:8]]}
             if windowed:
-                profile_rows[f"{tag}{label}"]["repair_ms"] = r_ms
+                profile_rows[f"{tag}{label}"].update(repair_ms=r_ms,
+                                                     misses=shares)
                 rows["k2" if pathline else "k1"].setdefault(
                     "repair_ms_per_step", {})[tag] = r_ms / PROFILE_STEPS
 
@@ -2451,6 +2911,7 @@ def main():
                     "api": api_summary, "multi_device": multi_summary,
                     "multi_process": process_summary,
                     "reference_scale": refscale_summary,
+                    "rising_columns": rising,
                     "bounds_ms": {k: v[0] for k, v in bounds.items()},
                     "profile": profile_rows}))
     replaces = {"k1": "mops_tpu/pallas/stage_kernel.py:479",
@@ -2472,4 +2933,6 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--phase7-worker"]:
         sys.exit(phase7_worker(json.loads(sys.argv[2])))
+    if sys.argv[1:2] == ["--window-ab"]:
+        sys.exit(window_ab(sys.argv[2]))
     main()

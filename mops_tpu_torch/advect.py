@@ -14,9 +14,10 @@ Step pipeline:
 On the card the step reads only a W-layer window of each column by default
 (mops_tpu's layer-window path, pallas/window_kernel.py): each particle
 carries the layer of its last step, the window starts W/2 - 1 layers above
-it, and a particle whose depth nears an inner window edge is stepped on the
-full column inside the same kernel, so the trajectories are the full
-step's.
+it, and a particle whose depth nears an inner window edge (an edge miss),
+or whose window may not clamp or test the surface and bottom as the full
+column does (a clamp miss, step.py), is stepped again on the full column
+right after on the same stream, so the trajectories are the full step's.
 
 Exact-parity quirks kept: cell relocation once per outer step with the cell
 frozen across RK stages; ztop clamp z[k] -> z[k-1] - 1e-9; binary layer
@@ -44,7 +45,7 @@ from .kernels.stage_kernel import (column_instance, fused_pathline_step,
                                    fused_streamline_step_plain,
                                    fused_window_pathline_step,
                                    fused_window_streamline_step,
-                                   pack_vertex_table)
+                                   pack_vertex_table, table_rise)
 from .mesh import MPASMesh, resolve_device
 from .settings import CalcDirection, CalcMethod, FailMode, TrajectorySettings
 from .solution import SolutionFields
@@ -137,8 +138,9 @@ class RawTrajectories:
     src/Common/TrajectoryCommon.h:15-27 + TBB kernel :901).  attrs is the
     pathline's record of up to two named attributes (zeros without them),
     None for a streamline.  window_misses counts, per particle, the steps
-    whose layer window missed (alive lanes with valid vertex ids); None
-    when the run used no window.
+    whose layer window missed (alive lanes with valid vertex ids), and
+    window_clamp_misses those of them that only the clamp test flagged
+    (the rest are edge misses); both None when the run used no window.
     """
 
     points: torch.Tensor           # (N, R, 3)
@@ -149,6 +151,7 @@ class RawTrajectories:
     final_cell: torch.Tensor       # (N,) int32
     alive: torch.Tensor            # (N,) bool
     window_misses: Optional[torch.Tensor] = None   # (N,) int32
+    window_clamp_misses: Optional[torch.Tensor] = None   # (N,) int32
 
 
 def record_schedule(settings: TrajectorySettings, pathline: bool):
@@ -240,7 +243,9 @@ class Stepper:
     """What a step needs besides the particles: one mesh's tables on one
     device (the whole mesh, or a shard's local tables) and the run's
     settings.  ``n_window`` is the layer window's width, 0 for the
-    full-column step."""
+    full-column step; ``rise`` and ``rise_b`` are the window kernels'
+    first rises of ``table`` and ``table_b`` (stage_kernel.table_rise; None
+    without a window or a back snapshot)."""
 
     mesh: MPASMesh
     reloc_xyz: torch.Tensor
@@ -259,6 +264,8 @@ class Stepper:
     flags: np.ndarray
     slots: np.ndarray
     alphas: np.ndarray
+    rise: Optional[torch.Tensor] = None
+    rise_b: Optional[torch.Tensor] = None
 
     @property
     def pathline(self) -> bool:
@@ -269,13 +276,16 @@ def make_stepper(mesh: MPASMesh, table, table_b, n_attrs: int,
                  settings: TrajectorySettings, use_kernel: bool = True,
                  exact_clamp: bool = True, n_window: int = 0) -> Stepper:
     """A Stepper over ``mesh`` and packed tables already on one device in
-    the run dtype."""
+    the run dtype; with a window, each table's first rises are computed
+    here, once."""
     if use_kernel and not exact_clamp:
         raise ValueError("the fused step kernel implements the sequential "
                          "(exact) ztop clamp only")
     pathline = table_b is not None
     is_first, flags, slots, alphas, dt = advection_schedule(settings, pathline)
     n_layers = (table.shape[1] - 4) // (5 + n_attrs)
+    rise = lambda t: None if not n_window or t is None \
+        else table_rise(t, n_layers)
     return Stepper(mesh=mesh, reloc_xyz=build_reloc_xyz(mesh), table=table,
                    table_b=table_b, n_layers=n_layers, n_attrs=n_attrs,
                    n_window=n_window, use_kernel=use_kernel,
@@ -283,15 +293,17 @@ def make_stepper(mesh: MPASMesh, table, table_b, n_attrs: int,
                    euler=settings.method == CalcMethod.EULER,
                    freeze=settings.fail_mode == FailMode.FREEZE, dt=dt,
                    duration=int(settings.simulation_duration),
-                   is_first=is_first, flags=flags, slots=slots, alphas=alphas)
+                   is_first=is_first, flags=flags, slots=slots, alphas=alphas,
+                   rise=rise(table), rise_b=rise(table_b))
 
 
 @dataclasses.dataclass
 class Particles:
     """A batch of particles on one device and their record buffers, which
     ``advance`` updates in place.  ``layer`` is the window path's carried
-    layer and ``misses`` its per-particle window-miss count (None on the
-    full-column path).  ``pid`` and ``rec_ids`` tag a migrating pool's
+    layer, ``misses`` its per-particle window-miss count and
+    ``clamp_misses`` the part of it that only the clamp test flagged (None
+    on the full-column path).  ``pid`` and ``rec_ids`` tag a migrating pool's
     slots and records with particle ids (-1: empty slot, no record)."""
 
     pos: torch.Tensor              # (N, 3) run dtype
@@ -303,6 +315,7 @@ class Particles:
     attrs: Optional[torch.Tensor]  # (N, R, 3) on a pathline
     layer: Optional[torch.Tensor] = None
     misses: Optional[torch.Tensor] = None
+    clamp_misses: Optional[torch.Tensor] = None
     pid: Optional[torch.Tensor] = None
     rec_ids: Optional[torch.Tensor] = None
 
@@ -310,7 +323,8 @@ class Particles:
         return RawTrajectories(points=self.pts, velocities=self.vels,
                                attrs=self.attrs, final_position=self.pos,
                                final_depth=self.depth, final_cell=self.cell,
-                               alive=self.alive, window_misses=self.misses)
+                               alive=self.alive, window_misses=self.misses,
+                               window_clamp_misses=self.clamp_misses)
 
 
 def seed_layers(mesh: MPASMesh, vertex_ztop: torch.Tensor, pos, cell,
@@ -414,15 +428,17 @@ def new_particles(st: Stepper, pos, cell, depth, n_records: int,
     alive = (cell >= 0) & (cell < st.mesh.n_cells)
     pts = torch.zeros((n, n_records, 3), dtype=pos.dtype, device=pos.device)
     pts[:, 0] = _where0(alive[:, None], pos)
-    misses = None
+    misses = clamp_misses = None
     if st.n_window:
         if layer is None:
             raise ValueError("the window path needs the start layers")
         misses = torch.zeros(n, dtype=torch.int32, device=pos.device)
+        clamp_misses = torch.zeros_like(misses)
     return Particles(pos=pos, depth=depth, cell=cell, alive=alive, pts=pts,
                      vels=torch.zeros_like(pts),
                      attrs=torch.zeros_like(pts) if st.pathline else None,
-                     layer=layer if st.n_window else None, misses=misses)
+                     layer=layer if st.n_window else None, misses=misses,
+                     clamp_misses=clamp_misses)
 
 
 def advance(st: Stepper, p: Particles, i: int) -> None:
@@ -443,19 +459,21 @@ def advance(st: Stepper, p: Particles, i: int) -> None:
     if st.n_window:
         s = window_starts(p.layer, st.n_layers, st.n_window)
         if st.pathline:
-            np_k, hv_k, wv_k, ok_k, layer_k, miss, at_k = \
+            np_k, hv_k, wv_k, ok_k, layer_k, miss, clamp, at_k = \
                 fused_window_pathline_step(
                     pos, depth_neg, nv, vids, s, st.table, st.table_b,
-                    st.n_layers, st.n_window, dt, alphas, euler=st.euler,
-                    n_attrs=st.n_attrs)
+                    st.rise, st.rise_b, st.n_layers, st.n_window, dt, alphas,
+                    euler=st.euler, n_attrs=st.n_attrs)
         else:
-            np_k, hv_k, wv_k, ok_k, layer_k, miss = \
+            np_k, hv_k, wv_k, ok_k, layer_k, miss, clamp = \
                 fused_window_streamline_step(
-                    pos, depth_neg, nv, vids, s, st.table, st.n_layers,
-                    st.n_window, dt, euler=st.euler)
+                    pos, depth_neg, nv, vids, s, st.table, st.rise,
+                    st.n_layers, st.n_window, dt, euler=st.euler)
             at_k = None
         p.layer = torch.where(alive, layer_k, p.layer)
-        p.misses += (miss & alive & vids_ok).to(torch.int32)
+        counted = alive & vids_ok
+        p.misses += (miss & counted).to(torch.int32)
+        p.clamp_misses += (clamp & counted).to(torch.int32)
     elif st.pathline:
         pstep = fused_pathline_step if st.use_kernel else functools.partial(
             fused_pathline_step_plain, exact_clamp=st.exact_clamp)

@@ -374,6 +374,8 @@ def main(argv=None) -> dict:
     steps_per_s = n_particles * n_steps / elapsed
     misses = 0 if raw.window_misses is None \
         else int(raw.window_misses.sum())
+    clamp = 0 if raw.window_clamp_misses is None \
+        else int(raw.window_clamp_misses.sum())
     record = {"metric": "particle_rk4_steps_per_s",
               "value": round(steps_per_s, 1), "unit": "steps/s",
               "vs_baseline": 1.0, "verified": g["verified"], "path": path}
@@ -383,7 +385,7 @@ def main(argv=None) -> dict:
     print(f"# device={dev} ({name}) cells={n_cells} layers={n_layers} "
           f"particles={n_particles} steps={n_steps} elapsed={elapsed:.3f}s "
           f"regime={'crossing' if crossing else 'solid-body'} "
-          f"window_misses={misses} "
+          f"window_misses={misses} (clamp {clamp}) "
           f"miss_rate={misses / (n_particles * n_steps):.2e}/particle-step",
           file=sys.stderr)
     if dev.type == "cuda":
@@ -401,7 +403,7 @@ def main(argv=None) -> dict:
     else:
         print("# roofline: not measured (no card)", file=sys.stderr)
     return {**record, "gate": g, "elapsed_s": elapsed,
-            "window_misses": misses}
+            "window_misses": misses, "window_clamp_misses": clamp}
 
 
 if __name__ == "__main__":

@@ -32,16 +32,22 @@
 // profile is summed over the window and clamped from its top, layers outside
 // read as +BIG above and -BIG below, and the surface and bottom tests use
 // the unclamped column ends (the front snapshot's for both snapshots, as the
-// TPU kernel reads them from one static row).  A depth within EPS_LAYER of an
-// inner window edge could belong to a layer outside: that stage is a miss.
-// Off the miss lanes every comparison resolves as on the full column, so the
-// step is K1's (K2's).  The window kernel also returns the first stage's
-// layer (the next window's centre) and the miss flag.  The TPU step loop
-// repairs its miss lanes afterwards with a full-column step; here the
-// wrapper launches K1 (K2) right after the window kernel, on the same
-// stream, in a masked form: a lane whose miss flag is false is skipped, and
-// a miss lane overwrites its outputs with the full-column step and its
-// layer with the full column's at the start position.  No host sync.
+// TPU kernel reads them from one static row).  The full column is the
+// reference, and a stage is a miss unless its comparisons resolve as on the
+// full column: an edge miss when the depth lies within EPS_LAYER of an inner
+// window edge (it could belong to a layer outside), a clamp miss when the
+// window's clamp or its surface and bottom tests may depart from the full
+// column's (window_clamp_miss below states the test and why it suffices;
+// the TPU kernel has no such test and parts from its full-column step on
+// ascending columns).  Off the miss lanes the step is K1's (K2's).  The
+// window kernel also returns the first stage's layer (the next window's
+// centre), the miss flag and which lanes only the clamp test flagged.  The
+// TPU step loop repairs its miss lanes afterwards with a full-column step;
+// here the window kernel appends each miss lane to a list, and the wrapper
+// launches K1 (K2) right after it, on the same stream, in a masked form
+// over the list: a listed lane overwrites its outputs with the full-column
+// step and its layer with the full column's at the start position.  No
+// host sync.
 //
 // Input layout.  The TPU kernels take columns pre-gathered by XLA into a
 // (K, F, N) lanes-minor block, and K3/K4 a (W, K*C, N) window slice gathered
@@ -215,7 +221,8 @@ __device__ __forceinline__ bool rk_step(const T* p0, T dt, int euler,
 //   window part:  ztop[s..s+W) | vel[3s..3(s+W)) | wvel[s..s+W)
 //                 | attrs[A*s..A*(s+W))
 // A pick outside [s, s+W) is zero (field_pick), so a hit lane reads nothing
-// else, and the four stages read only shared memory and registers.  In each
+// else, and the four stages read only shared memory and registers (the
+// cell's least first rise of each table is read with the copies).  In each
 // stage lane j evaluates the edge tests and Wachspress weights of vertices
 // j, j+G, ... (the triangle area B_k, which does not depend on the
 // position, once per step) into the particle's slot, where every lane
@@ -229,8 +236,9 @@ __device__ __forceinline__ bool rk_step(const T* p0, T dt, int euler,
 // nothing else is broadcast, and lane 0 writes the outputs.  The window's
 // profile z[W] lives in registers: the kernels are templated on WT, the
 // window width at compile time (8, the main path's), or W_MAX with the
-// width given at run time.  Miss lanes are not repaired here: the wrapper
-// launches K1 (K2) right after, masked by the miss flags.
+// width given at run time.  Miss lanes are not repaired here: lane 0
+// appends its particle to the list of miss lanes, over which the wrapper
+// launches K1 (K2) right after.
 //
 // The sums' order and the absence of implicit contraction (-fmad=false)
 // make a hit lane's step bit-equal to K1's (K2's), as the window paths'
@@ -349,8 +357,12 @@ __device__ __forceinline__ void vertex_bk(const Staged<T>& st, int lane,
 // w_k = B_k / (A_k * A_{k+1}), normalised, spread over the group: lane j
 // evaluates vertices j, j+G, ... and writes their weights to st.w, every
 // lane sums them in order, and the owners normalise them in place.  bk
-// holds B_k of the lane's vertices (vertex_bk).  Returns inside.  Every
-// lane of the group must call it.
+// holds B_k of the lane's vertices (vertex_bk).  Returns inside, and with
+// ``weights_bad`` whether some normalised weight is not >= 0: the raw
+// weights are never negative (the areas are unsigned), so that is when
+// their sum, which every lane forms, is NaN, 0 or infinite (an infinite sum
+// of finite weights is flagged too, which errs toward a miss).  Every lane
+// of the group must call it.
 // The edge test is evaluated as cross(A_k - p, B_k - p) . p, the same
 // determinant (subtracting p from two of its columns leaves it unchanged)
 // without the cancellation of cross(A_k, B_k): at float32, products of
@@ -361,7 +373,7 @@ __device__ __forceinline__ void vertex_bk(const Staged<T>& st, int lane,
 template <int G, typename T>
 __device__ __forceinline__
 bool geometry_group(const Staged<T>& st, const T* bk, const T* p,
-                    unsigned gmask, int lane) {
+                    unsigned gmask, int lane, bool* weights_bad = nullptr) {
   const int nv = st.nv;
   bool in = isfinite(p[0]) && isfinite(p[1]) && isfinite(p[2]);
   __syncwarp(gmask);                      // the last stage's reads of w
@@ -386,6 +398,8 @@ bool geometry_group(const Staged<T>& st, const T* bk, const T* p,
   __syncwarp(gmask);
   T wsum = T(0);
   for (int k = 0; k < nv; ++k) wsum = wsum + st.w[k];
+  if (weights_bad != nullptr)
+    *weights_bad = !(wsum > T(0) && isfinite(wsum));
   const T inv = T(1) / wsum;
   __syncwarp(gmask);
 #pragma unroll
@@ -419,13 +433,50 @@ struct Window {
   }
 };
 
-// Depth within EPS_LAYER of an inner window edge (miss_of).
+// Edge miss: depth within EPS_LAYER of an inner window edge (miss_of).
 template <typename T, int WT>
 __device__ __forceinline__
 bool window_miss(const Window<T, WT>& win, T d) {
   const int W = win.width();
   return (win.s > 0 && d >= win.z[0] - eps_layer<T>()) ||
          (win.s + W < win.L && d <= win.sel(W - 1) + eps_layer<T>());
+}
+
+// Clamp miss of one snapshot's clamped window (step.py, "the layer-window
+// step"; the plain version's _clamp_top_miss and _ends_miss), all but its
+// first-rise test, which depends only on the step's s and cell and is
+// taken once, at the end of the step (window_step).  The window's
+// clamp, started at its top, equals the full column's clamped values z' on
+// [s, s+W) exactly when the raw z[s] <= z'[s-1] (then z'[s] = z[s], and
+// both run the same recurrence on the same values from there), at s = 0
+// always.  The window cannot read the layers above it, so the kernel tests
+// a sufficient condition, erring toward a miss (a false miss costs only a
+// repair): at s > 0 the stage misses when s >= rise_min, the least over the
+// cell's vertices of the first layer l >= 1 at which the vertex's raw
+// column rises (ztop[l] > ztop[l-1], L if never: table_rise, read once a
+// step), or when a weight is not >= 0 (neg_w, from geometry_group).  Why
+// that suffices: each profile value is the chain acc = fma(w_k,
+// ztop_k[l], acc) over k = 0..nv-1, and fma under round-to-nearest is
+// monotone in each argument for w_k >= 0, so with columns that do not rise
+// on layers 0..s the
+// interpolated profile does not rise there either, even in floats; the
+// clamp then changes nothing on 0..s, and z'[s-1] = z[s-1] >= z[s].  The
+// surface and bottom tests compare the depth with the raw ends z0 and zL
+// (the front snapshot's), the full column with its z'[0] and z'[L-1]: the
+// stage also misses when those two verdicts differ from the verdicts
+// against the window's own first and last clamped values, which are z'[0]
+// (z'[L-1]) where the window holds the column's top (bottom); elsewhere a
+// lane whose raw-end verdict differs from the full column's is flagged here
+// or is an edge miss (z' does not rise: z'[0] >= z'[s], z'[L-1] <=
+// z'[s+W-1]).
+template <typename T, int WT>
+__device__ __forceinline__
+bool window_clamp_miss(const Window<T, WT>& win, T d, T z0, T zL,
+                       bool neg_w) {
+  const int W = win.width();
+  return (win.s > 0 && neg_w) ||
+         ((d > z0 + eps_layer<T>()) != (d > win.z[0] + eps_layer<T>())) ||
+         ((d < zL - eps_layer<T>()) != (d < win.sel(W - 1) - eps_layer<T>()));
 }
 
 // layer_binary over the window with the sentinels; surface z0, bottom zL.
@@ -534,16 +585,18 @@ __device__ __forceinline__ int pick_offset(int m, int layer, int s, int W,
 // lanes, each sum taken over k in order, and gathered into every lane's
 // registers with shuffles: first the window profiles (front, then back)
 // and the front's surface and bottom, then, once every lane has found the
-// layers, the picks.  layer is the front snapshot's; miss the OR of both.
+// layers, the picks.  layer is the front snapshot's; edge and clamp the OR
+// of both snapshots' misses.
 template <typename T, int WT, bool PATH>
 __device__ __forceinline__
 bool eval_window_stage(const Staged<T>& st, int s, int W, int L,
                        const T* bk, const T* p, T a, unsigned gmask,
-                       int lane, T* hv, T& wv, T* at, int& layer,
-                       bool& miss) {
+                       int lane, T* hv, T& wv, T* at, int& layer, bool& edge,
+                       bool& clamp) {
   constexpr int NS = PATH ? 2 : 1;              // snapshots
   constexpr int G = group_size<T, PATH>();
-  const bool inside = geometry_group<G>(st, bk, p, gmask, lane);
+  bool neg_w;                                   // a weight not >= 0
+  const bool inside = geometry_group<G>(st, bk, p, gmask, lane, &neg_w);
   const int nv = st.nv;
   const T d = st.d;
 
@@ -583,7 +636,8 @@ bool eval_window_stage(const Staged<T>& st, int s, int W, int L,
   int lay[NS];
   bool ok_col = true, ok_mag = true;
   T t[NS];
-  miss = false;
+  edge = false;
+  clamp = false;
 #pragma unroll
   for (int sn = 0; sn < NS; ++sn) {
     win[sn].s = s;
@@ -593,7 +647,8 @@ bool eval_window_stage(const Staged<T>& st, int s, int W, int L,
     bool ok_layer = true, ok_denom;
     lay[sn] = PATH ? layer_linear_w(win[sn], d, z0, zL, ok_layer)
                    : layer_binary_w(win[sn], d, z0, zL);
-    miss = miss || window_miss(win[sn], d);
+    edge = edge || window_miss(win[sn], d);
+    clamp = clamp || window_clamp_miss(win[sn], d, z0, zL, neg_w);
     t[sn] = lerp_t_w(win[sn], lay[sn], d, ok_denom);
     ok_col = ok_col && ok_layer && ok_denom;
   }
@@ -668,8 +723,21 @@ __host__ __device__ inline int slot_values(int K, int W, int A,
   return S + (S % 2 == 0);
 }
 
+// The least of the group's lanes' m, in every lane (a butterfly of
+// shuffles).
+template <int G>
+__device__ __forceinline__ int group_min(int m, unsigned gmask) {
+#pragma unroll
+  for (int o = G / 2; o > 0; o >>= 1) {
+    const int x = __shfl_xor_sync(gmask, m, o, G);
+    m = x < m ? x : m;
+  }
+  return m;
+}
+
 // The window step of one particle by its group (K3 when !PATH, K4 when
-// PATH): outputs as the TPU kernel's, miss lanes not repaired.
+// PATH): outputs as the TPU kernel's, plus the clamp flags; miss lanes not
+// repaired.
 template <typename T, int WT, bool PATH>
 __device__ void window_step(const T* __restrict__ pos,
                             const T* __restrict__ depth_neg,
@@ -677,13 +745,18 @@ __device__ void window_step(const T* __restrict__ pos,
                             const int32_t* __restrict__ vids,
                             const int32_t* __restrict__ s_in,
                             const T* __restrict__ table_f,
-                            const T* __restrict__ table_b, int n, int K,
+                            const T* __restrict__ table_b,
+                            const int32_t* __restrict__ rise_f,
+                            const int32_t* __restrict__ rise_b, int n, int K,
                             int F, int L, int W, int n_attrs, T dt, T a1,
                             T a2, T a4, int euler, T* __restrict__ new_pos,
                             T* __restrict__ hvel, T* __restrict__ wvel,
                             bool* __restrict__ ok_out,
                             int32_t* __restrict__ layer_out,
                             bool* __restrict__ miss_out,
+                            bool* __restrict__ clamp_out,
+                            int32_t* __restrict__ list,
+                            int32_t* __restrict__ count,
                             T* __restrict__ attr) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   constexpr int G = group_size<T, PATH>();
@@ -709,27 +782,51 @@ __device__ void window_step(const T* __restrict__ pos,
   st.nv = nv;
   st.A = A;
   st.d = depth_neg[i];
-  stage_rows<G>(rec_f, PATH ? rec_b : (T*)nullptr, table_f, table_b,
-             vids + (int64_t)i * K, nv, F, L, W, A, s, lane);
+  const int32_t* vid = vids + (int64_t)i * K;
+  stage_rows<G>(rec_f, PATH ? rec_b : (T*)nullptr, table_f, table_b, vid, nv,
+                F, L, W, A, s, lane);
+  // the first rises of the lane's vertices k = lane, lane+G, ... in each
+  // table (table_rise): loaded here and read after the stages, so that the
+  // loads hold up neither the copies nor a stage
+  constexpr int Q = (K_MAX + G - 1) / G;
+  int rise[PATH ? 2 : 1][Q];
+#pragma unroll
+  for (int q = 0; q < Q; ++q) {
+    const int k = lane + q * G;
+    const int v = k < nv ? vid[k] : 0;
+    rise[0][q] = k < nv ? __ldg(rise_f + v) : INT32_MAX;
+    if (PATH) rise[PATH ? 1 : 0][q] = k < nv ? __ldg(rise_b + v) : INT32_MAX;
+  }
   __syncwarp(gmask);
   T bk[(K_MAX + G - 1) / G];
   vertex_bk<G>(st, lane, bk);
   const T p0[3] = {pos[3 * (int64_t)i], pos[3 * (int64_t)i + 1],
                    pos[3 * (int64_t)i + 2]};
   int layer = 1;
-  bool miss = false;
+  bool edge = false, clamp = false;
   auto eval = [&](const T* p, int stage, T* hv, T& wv, T* at) {
     int lay;
-    bool m;
+    bool e, c;
     const T a = stage == 0 ? a1 : (stage == 3 ? a4 : a2);
     const bool ok = eval_window_stage<T, WT, PATH>(
-        st, s, W, L, bk, p, a, gmask, lane, hv, wv, at, lay, m);
+        st, s, W, L, bk, p, a, gmask, lane, hv, wv, at, lay, e, c);
     if (stage == 0) layer = lay;
-    miss = miss || m;
+    edge = edge || e;
+    clamp = clamp || c;
     return ok;
   };
   T hv[3], wv, np_[3], at[A_MAX];
   const bool ok = rk_step(p0, dt, euler, A, eval, np_, hv, wv, at);
+  // the top's first-rise test (window_clamp_miss) against the least first
+  // rise over the cell's vertices and both tables
+  int rise_min = INT32_MAX;
+#pragma unroll
+  for (int sn = 0; sn < (PATH ? 2 : 1); ++sn)
+#pragma unroll
+    for (int q = 0; q < Q; ++q)
+      rise_min = rise[sn][q] < rise_min ? rise[sn][q] : rise_min;
+  rise_min = group_min<G>(rise_min, gmask);
+  clamp = clamp || (s > 0 && s >= rise_min);
   if (lane != 0) return;
   for (int c = 0; c < 3; ++c) {
     new_pos[3 * (int64_t)i + c] = np_[c];
@@ -738,7 +835,9 @@ __device__ void window_step(const T* __restrict__ pos,
   wvel[i] = wv;
   ok_out[i] = ok;
   layer_out[i] = layer < 1 ? 1 : (layer > L - 1 ? L - 1 : layer);
-  miss_out[i] = miss;
+  miss_out[i] = edge || clamp;
+  clamp_out[i] = clamp && !edge;
+  if (edge || clamp) list[atomicAdd(count, 1)] = i;   // for the repair
   if (PATH && attr != nullptr) {          // slots >= n_attrs are zero
     attr[3 * (int64_t)i] = A > 0 ? at[0] : T(0);
     attr[3 * (int64_t)i + 1] = A > 1 ? at[1] : T(0);
@@ -750,15 +849,18 @@ __device__ void window_step(const T* __restrict__ pos,
   const T *__restrict__ pos, const T *__restrict__ depth_neg,                \
       const int32_t *__restrict__ nv_in, const int32_t *__restrict__ vids,   \
       const int32_t *__restrict__ s_in, const T *__restrict__ table_f,       \
-      const T *__restrict__ table_b, int n, int K, int F, int L, int W,      \
+      const T *__restrict__ table_b, const int32_t *__restrict__ rise_f,     \
+      const int32_t *__restrict__ rise_b, int n, int K, int F, int L, int W, \
       int n_attrs, T dt, T a1, T a2, T a4, int euler,                        \
       T *__restrict__ new_pos, T *__restrict__ hvel, T *__restrict__ wvel,   \
       bool *__restrict__ ok_out, int32_t *__restrict__ layer_out,            \
-      bool *__restrict__ miss_out, T *__restrict__ attr
+      bool *__restrict__ miss_out, bool *__restrict__ clamp_out,             \
+      int32_t *__restrict__ list, int32_t *__restrict__ count,               \
+      T *__restrict__ attr
 #define WINDOW_KERNEL_ARGS                                                    \
-  pos, depth_neg, nv_in, vids, s_in, table_f, table_b, n, K, F, L, W,        \
-      n_attrs, dt, a1, a2, a4, euler, new_pos, hvel, wvel, ok_out,           \
-      layer_out, miss_out, attr
+  pos, depth_neg, nv_in, vids, s_in, table_f, table_b, rise_f, rise_b, n, K, \
+      F, L, W, n_attrs, dt, a1, a2, a4, euler, new_pos, hvel, wvel, ok_out,  \
+      layer_out, miss_out, clamp_out, list, count, attr
 
 // Occupancy is bounded by shared memory, not registers: no cap below 255.
 template <typename T, int WT>
@@ -799,6 +901,9 @@ int launch_window(WINDOW_KERNEL_PARAMS, void* stream) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (e != cudaSuccess) return (int)e;
   }
+  const cudaError_t e = cudaMemsetAsync(count, 0, sizeof(int32_t),
+                                        (cudaStream_t)stream);
+  if (e != cudaSuccess) return (int)e;
   if (n > 0)
     kernel<<<(n + P - 1) / P, P * G, smem, (cudaStream_t)stream>>>(
         WINDOW_KERNEL_ARGS);
@@ -842,12 +947,11 @@ int launch_window(WINDOW_KERNEL_PARAMS, void* stream) {
 // so a window step that does not miss is bit-equal to this one.
 //
 // The masked form (the window paths' repair, launched after every K3/K4
-// step with under 0.5 % of the lanes flagged): warps read the flags of 32
-// particles at a time with one load and a ballot, and their groups step
-// the flagged ones, so a launch without a flag costs a scan of the n
-// flags.  The layer it writes for the start position is stage 1's (front)
-// layer: stage 1 is evaluated there.  Each kernel keeps its own scan and
-// grid (streamline_step_kernel, pathline_step_kernel).
+// step with under 0.5 % of the lanes flagged): one resident wave of groups
+// steps the particles of the window kernel's list of miss lanes
+// (for_particles), so a launch with an empty list costs a read of its
+// count.  The layer it writes for the start position is stage 1's (front)
+// layer: stage 1 is evaluated there.
 //
 // Each kernel's lanes a particle, register cap and table loads in flight
 // stand beside it (kStreamGroup, kPathGroup).
@@ -1114,11 +1218,9 @@ cudaError_t resident_wave(void (*kernel)(Args), int threads, int smem,
 // Launch a full-column step kernel (NS snapshots, G lanes a particle): the
 // LT = 64 instance k64 for L <= 64 (the main path's 60 layers: fewer
 // registers a lane) or the L_MAX one, P groups a block (column_layout).
-// Plain, a group a particle.  Masked, the kernel's scan sets the grid:
-// with ONE_WAVE (K1) the grid is one wave of resident blocks whose warps
-// step through the flag chunks grid-stride; without (K2) a warp takes one
-// chunk of 32 flags.
-template <int G, int NS, bool ONE_WAVE, typename T, typename Args>
+// Plain, a group a particle.  Masked, one wave of resident blocks whose
+// groups step through the listed particles (for_particles).
+template <int G, int NS, typename T, typename Args>
 int launch_column(void (*k64)(Args), void (*k_max)(Args), const Args& a,
                   void* stream) {
   int slot, P;
@@ -1131,9 +1233,8 @@ int launch_column(void (*k64)(Args), void (*k_max)(Args), const Args& a,
     e = cudaFuncSetAttribute(kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess || a.n == 0) return (int)e;
-  int blocks = a.only != nullptr ? (a.n + P * G - 1) / (P * G)
-                                 : (a.n + P - 1) / P;
-  if (ONE_WAVE && a.only != nullptr) {
+  int blocks = (a.n + P - 1) / P;
+  if (a.list != nullptr) {
     int wave;
     if ((e = resident_wave(kernel, P * G, smem, &wave)) != cudaSuccess)
       return (int)e;
@@ -1178,7 +1279,8 @@ struct StreamlineArgs {
   T* hvel;
   T* wvel;
   bool* ok;
-  const bool* only;
+  const int32_t* list;
+  const int32_t* count;
   int32_t* layer;
 };
 
@@ -1268,47 +1370,30 @@ __device__ void streamline_group_step(const StreamlineArgs<T>& a, int i,
   }
   a.wvel[i] = wv;
   a.ok[i] = ok;
-  if (a.only != nullptr)
+  if (a.list != nullptr)
     a.layer[i] = layer < 1 ? 1 : (layer > L - 1 ? L - 1 : layer);
 }
 
-// K1's particles.  Plain: group g of block b steps particle b*P + g.
-// Masked (only set): the grid is one resident wave (launch_column), and
-// warp w scans the flags of particles 32w .., 32(w + W) .., ... (W warps
-// in the grid), 32 with one load and a ballot; each of its 32/G groups
-// keeps the next flagged particle, and the groups step theirs together
-// once each holds one, or at the end.  A step's latency, not the number of
-// flagged lanes, is what a masked launch waits on: one warp a chunk took a
-// step a wave (60 against 45 us at f32 on the H100, PERF.md).
+// K1's and K2's particles.  Plain: group g of block b steps particle
+// b*P + g.  Masked (list set): the grid is one resident wave
+// (launch_column), and group g of the G_n in the grid steps the listed
+// particles list[g], list[g + G_n], ... of the count the window kernel
+// appended (window_step).  A step's latency, not the number of listed
+// lanes, is what a masked launch waits on, so the list spreads them over
+// every group: particles flagged together, neighbours in a seed grid or in
+// one cell as the window's clamp misses are, take one round, where a scan
+// of their flags 32 at a time by a warp took a round for every 32/G of
+// them.
 template <int G, bool MASKED, typename Step>
-__device__ __forceinline__ void for_particles(int n, const bool* only,
+__device__ __forceinline__ void for_particles(int n, const int32_t* list,
+                                              const int32_t* count,
                                               Step step) {
+  const int g = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
   if constexpr (!MASKED) {
-    const int i = blockIdx.x * (blockDim.x / G) + threadIdx.x / G;
-    if (i < n) step(i);
+    if (g < n) step(g);
   } else {
-    const int lane = threadIdx.x & 31, sub = lane / G;
-    const int stride = gridDim.x * blockDim.x;       // 32 x warps
-    int next = (blockIdx.x * blockDim.x + threadIdx.x) & ~31, base = 0;
-    unsigned flags = 0u;                  // all of these are the warp's
-    for (;;) {
-      int mine = -1, held = 0;            // a round: a particle a group
-      while (held < 32 / G) {
-        if (flags == 0u) {
-          if (next >= n) break;
-          base = next;
-          next += stride;
-          flags = __ballot_sync(0xffffffffu,
-                                base + lane < n && only[base + lane]);
-          continue;
-        }
-        if (held == sub) mine = base + __ffs(flags) - 1;
-        flags &= flags - 1u;
-        ++held;
-      }
-      if (held == 0) return;
-      if (mine >= 0) step(mine);
-    }
+    const int groups = gridDim.x * (blockDim.x / G), m = *count;
+    for (int e = g; e < m; e += groups) step(list[e]);
   }
 }
 
@@ -1322,7 +1407,7 @@ streamline_step_kernel(StreamlineArgs<T> a) {
             (size_t)(threadIdx.x / G) * column_slot_values(a.K, a.L, 1);
   const unsigned gmask = group_mask<G>();
   const int lane = threadIdx.x % G;
-  for_particles<G, MASKED>(a.n, a.only, [&](int i) {
+  for_particles<G, MASKED>(a.n, a.list, a.count, [&](int i) {
     streamline_group_step<T, LT>(a, i, slot, gmask, lane);
   });
 }
@@ -1331,11 +1416,11 @@ template <typename T>
 int launch_streamline(const StreamlineArgs<T>& a, void* stream) {
   if (a.K > K_MAX || a.L > L_MAX || a.L < 2) return (int)cudaErrorInvalidValue;
   constexpr int G = kStreamGroup;
-  return a.only != nullptr
-             ? launch_column<G, 1, true, T>(
+  return a.list != nullptr
+             ? launch_column<G, 1, T>(
                    streamline_step_kernel<T, 64, true>,
                    streamline_step_kernel<T, L_MAX, true>, a, stream)
-             : launch_column<G, 1, true, T>(
+             : launch_column<G, 1, T>(
                    streamline_step_kernel<T, 64, false>,
                    streamline_step_kernel<T, L_MAX, false>, a, stream);
 }
@@ -1375,7 +1460,8 @@ struct PathlineArgs {
   T* wvel;
   bool* ok;
   T* attr;
-  const bool* only;
+  const int32_t* list;
+  const int32_t* count;
   int32_t* layer;
 };
 
@@ -1500,15 +1586,11 @@ __device__ void pathline_group_step(const PathlineArgs<T>& a, int i, T* slot,
     a.attr[3 * (int64_t)i + 1] = a.n_attrs > 1 ? at[1] : T(0);
     a.attr[3 * (int64_t)i + 2] = T(0);
   }
-  if (a.only != nullptr)
+  if (a.list != nullptr)
     a.layer[i] = layer < 1 ? 1 : (layer > L - 1 ? L - 1 : layer);
 }
 
-// Plain: group g of block b steps particle b*P + g.  Masked (a.only set):
-// warp w of the grid scans particles 32w .. 32w+31, and in each round its
-// 32/G groups take the next 32/G flagged ones, one each.  The warps of
-// different chunks step their flags at once (a resident wave stepping a
-// warp's chunks in turn took 56 against 46 us at f32 on the H100).
+// A group a particle (for_particles; K2's group is a warp).
 template <typename T, int LT, bool MASKED>
 __global__ void __launch_bounds__(kBlockThreads,
                                   path_min_blocks<T, LT, MASKED>())
@@ -1519,25 +1601,9 @@ pathline_step_kernel(PathlineArgs<T> a) {
   T* slot = reinterpret_cast<T*>(smem_raw) +
             (size_t)g * column_slot_values(a.K, a.L, 2);
   const unsigned gmask = group_mask<G>();
-  if constexpr (!MASKED) {
-    const int i = blockIdx.x * (blockDim.x / G) + g;
-    if (i < a.n) pathline_group_step<T, LT>(a, i, slot, gmask, lane);
-    return;
-  }
-  const int base = (blockIdx.x * blockDim.x + threadIdx.x) & ~31;
-  const int j = base + (threadIdx.x & 31);
-  unsigned flags = __ballot_sync(0xffffffffu, j < a.n && a.only[j]);
-  const int sub = (threadIdx.x & 31) / G;
-  while (flags != 0u) {
-    unsigned mine = flags;
-    for (int q = 0; q < 32 / G; ++q) {
-      if (q < sub) mine &= mine - 1u;     // the group's flag of the round
-      flags &= flags - 1u;                // the round's flags are taken
-    }
-    if (mine != 0u)
-      pathline_group_step<T, LT>(a, base + __ffs(mine) - 1, slot, gmask,
-                                 lane);
-  }
+  for_particles<G, MASKED>(a.n, a.list, a.count, [&](int i) {
+    pathline_group_step<T, LT>(a, i, slot, gmask, lane);
+  });
 }
 
 template <typename T>
@@ -1546,11 +1612,11 @@ int launch_pathline(const PathlineArgs<T>& a, void* stream) {
       a.L < 2)
     return (int)cudaErrorInvalidValue;
   constexpr int G = kPathGroup;
-  return a.only != nullptr
-             ? launch_column<G, 2, false, T>(
+  return a.list != nullptr
+             ? launch_column<G, 2, T>(
                    pathline_step_kernel<T, 64, true>,
                    pathline_step_kernel<T, L_MAX, true>, a, stream)
-             : launch_column<G, 2, false, T>(
+             : launch_column<G, 2, T>(
                    pathline_step_kernel<T, 64, false>,
                    pathline_step_kernel<T, L_MAX, false>, a, stream);
 }
@@ -1593,17 +1659,19 @@ void pathline_step_layout(int K, int L, int itemsize, int* slot_bytes,
 }
 #endif
 
-// K1 and K2: ``only`` and ``layer`` are null for a plain step, and the miss
-// flags and the window's layer output for the repair of a window step.
+// K1 and K2: ``list``, ``count`` and ``layer`` are null for a plain step,
+// and the window kernel's list of miss lanes, its count and the window's
+// layer output for the repair of a window step.
 #define STREAMLINE_ENTRY(T, tag)                                               \
   int streamline_step_##tag(                                                   \
       const T* pos, const T* depth_neg, const int32_t* nv,                     \
       const int32_t* vids, const T* table, int n, int K, int F, int L, T dt,   \
-      int euler, T* new_pos, T* hvel, T* wvel, bool* ok, const bool* only,     \
-      int32_t* layer, void* stream) {                                          \
+      int euler, T* new_pos, T* hvel, T* wvel, bool* ok,                       \
+      const int32_t* list, const int32_t* count, int32_t* layer,               \
+      void* stream) {                                                          \
     return launch_streamline<T>({pos, depth_neg, nv, vids, table, n, K, F, L,  \
-                                 dt, euler, new_pos, hvel, wvel, ok, only,     \
-                                 layer},                                       \
+                                 dt, euler, new_pos, hvel, wvel, ok, list,     \
+                                 count, layer},                                \
                                 stream);                                       \
   }
 
@@ -1612,37 +1680,44 @@ void pathline_step_layout(int K, int L, int itemsize, int* slot_bytes,
       const T* pos, const T* depth_neg, const int32_t* nv,                     \
       const int32_t* vids, const T* table_f, const T* table_b, int n, int K,   \
       int F, int L, int n_attrs, T dt, T a1, T a2, T a4, int euler,            \
-      T* new_pos, T* hvel, T* wvel, bool* ok, T* attr, const bool* only,       \
-      int32_t* layer, void* stream) {                                          \
+      T* new_pos, T* hvel, T* wvel, bool* ok, T* attr, const int32_t* list,    \
+      const int32_t* count, int32_t* layer, void* stream) {                    \
     return launch_pathline<T>(                                                 \
         {pos, depth_neg, nv, vids, table_f, table_b, n, K, F, L, n_attrs, dt,  \
-         a1, a2, a4, euler, new_pos, hvel, wvel, ok, attr, only, layer},       \
+         a1, a2, a4, euler, new_pos, hvel, wvel, ok, attr, list, count,        \
+         layer},                                                               \
         stream);                                                               \
   }
 
+// K3 and K4: ``rise`` (``rise_f``, ``rise_b``) the tables' first rises
+// (table_rise), ``clamp`` the lanes that only the clamp test flagged,
+// ``list`` (n entries) and ``count`` the miss lanes for K1's (K2's) repair.
 #define WINDOW_STREAMLINE_ENTRY(T, tag)                                        \
   int window_streamline_step_##tag(                                            \
       const T* pos, const T* depth_neg, const int32_t* nv,                     \
-      const int32_t* vids, const int32_t* s, const T* table, int n, int K,     \
-      int F, int L, int W, T dt, int euler, T* new_pos, T* hvel, T* wvel,      \
-      bool* ok, int32_t* layer, bool* miss, void* stream) {                    \
+      const int32_t* vids, const int32_t* s, const T* table,                   \
+      const int32_t* rise, int n, int K, int F, int L, int W, T dt, int euler, \
+      T* new_pos, T* hvel, T* wvel, bool* ok, int32_t* layer, bool* miss,      \
+      bool* clamp, int32_t* list, int32_t* count, void* stream) {              \
     return launch_window_any<T, false>(                                        \
-        pos, depth_neg, nv, vids, s, table, table, n, K, F, L, W, 0, dt, T(0), \
-        T(0), T(0), euler, new_pos, hvel, wvel, ok, layer, miss, (T*)nullptr,  \
-        stream);                                                               \
+        pos, depth_neg, nv, vids, s, table, table, rise, rise, n, K, F, L, W,  \
+        0, dt, T(0), T(0), T(0), euler, new_pos, hvel, wvel, ok, layer, miss,  \
+        clamp, list, count, (T*)nullptr, stream);                              \
   }
 
 #define WINDOW_PATHLINE_ENTRY(T, tag)                                          \
   int window_pathline_step_##tag(                                              \
       const T* pos, const T* depth_neg, const int32_t* nv,                     \
       const int32_t* vids, const int32_t* s, const T* table_f,                 \
-      const T* table_b, int n, int K, int F, int L, int W, int n_attrs, T dt,  \
-      T a1, T a2, T a4, int euler, T* new_pos, T* hvel, T* wvel, bool* ok,     \
-      int32_t* layer, bool* miss, T* attr, void* stream) {                     \
+      const T* table_b, const int32_t* rise_f, const int32_t* rise_b, int n,   \
+      int K, int F, int L, int W, int n_attrs, T dt, T a1, T a2, T a4,         \
+      int euler, T* new_pos, T* hvel, T* wvel, bool* ok, int32_t* layer,       \
+      bool* miss, bool* clamp, int32_t* list, int32_t* count, T* attr,         \
+      void* stream) {                                                          \
     return launch_window_any<T, true>(                                         \
-        pos, depth_neg, nv, vids, s, table_f, table_b, n, K, F, L, W, n_attrs, \
-        dt, a1, a2, a4, euler, new_pos, hvel, wvel, ok, layer, miss, attr,     \
-        stream);                                                               \
+        pos, depth_neg, nv, vids, s, table_f, table_b, rise_f, rise_b, n, K,   \
+        F, L, W, n_attrs, dt, a1, a2, a4, euler, new_pos, hvel, wvel, ok,      \
+        layer, miss, clamp, list, count, attr, stream);                        \
   }
 
 #if STAGE_HAS(1)

@@ -25,8 +25,9 @@ from pathlib import Path
 import torch
 
 from .nvcc_build import build_library
-from ..step import (pathline_step, start_layer, streamline_step, window_cols,
-                    window_pathline_step, window_streamline_step)
+from ..step import (cell_rise, first_rise, pathline_step, start_layer,
+                    streamline_step, window_cols, window_pathline_step,
+                    window_streamline_step)
 
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "stage_kernel.cu"
@@ -93,19 +94,20 @@ def _library() -> ctypes.CDLL:
         for tag, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
             fn = getattr(lib, f"streamline_step_{tag}")
             fn.argtypes = [P, P, P, P, P, I, I, I, I, real, I, P, P, P, P, P,
-                           P, P]
+                           P, P, P]
             fn.restype = I
             fn = getattr(lib, f"pathline_step_{tag}")
             fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, real, real, real,
-                           real, I, P, P, P, P, P, P, P, P]
+                           real, I, P, P, P, P, P, P, P, P, P]
             fn.restype = I
             fn = getattr(lib, f"window_streamline_step_{tag}")
-            fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, real, I, P, P, P,
-                           P, P, P, P]
+            fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, real, I, P, P,
+                           P, P, P, P, P, P, P, P]
             fn.restype = I
             fn = getattr(lib, f"window_pathline_step_{tag}")
-            fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, real, real,
-                           real, real, I, P, P, P, P, P, P, P, P]
+            fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, real,
+                           real, real, real, I, P, P, P, P, P, P, P, P, P, P,
+                           P]
             fn.restype = I
         for name in ("stage_kernel_k_max", "stage_kernel_l_max",
                      "stage_kernel_a_max", "stage_kernel_w_max"):
@@ -200,7 +202,7 @@ def fused_streamline_step(pos, depth_neg, nv, vids, table, n_layers: int,
         err = fn(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
                  vids.data_ptr(), table.data_ptr(), n, K, F, n_layers, float(dt),
                  int(bool(euler)), new_pos.data_ptr(), hvel.data_ptr(),
-                 wvel.data_ptr(), ok.data_ptr(), None, None, stream)
+                 wvel.data_ptr(), ok.data_ptr(), None, None, None, stream)
     _raise_on(name, err)
     fused_streamline_step.launches += 1
     return new_pos, hvel, wvel, ok
@@ -265,7 +267,8 @@ def fused_pathline_step(pos, depth_neg, nv, vids, table_f, table_b,
                  F, n_layers, n_attrs, float(dt), a1, a2, a4,
                  int(bool(euler)), new_pos.data_ptr(), hvel.data_ptr(),
                  wvel.data_ptr(), ok.data_ptr(),
-                 None if attr is None else attr.data_ptr(), None, None, stream)
+                 None if attr is None else attr.data_ptr(), None, None, None,
+                 stream)
     _raise_on(name, err)
     fused_pathline_step.launches += 1
     return new_pos, hvel, wvel, ok, attr
@@ -323,58 +326,80 @@ def fused_pathline_step_plain(pos, depth_neg, nv, vids, table_f, table_b,
 # the layer-window steps (K3, K4)
 # ---------------------------------------------------------------------------
 
-def _check_window(name, s, n, n_layers, n_window, device):
-    """Checks of the window starts and width shared by K3 and K4."""
+def table_rise(table: torch.Tensor, n_layers: int) -> torch.Tensor:
+    """step.first_rise of a packed table's ztop columns: (nV,) int32, the
+    window kernels' clamp-miss input, computed once per table."""
+    return first_rise(table[:, 3:3 + n_layers]).contiguous()
+
+
+def _check_window(name, s, n, n_layers, n_window, device, tables, rises):
+    """Checks of the window starts and width, and of each table's first
+    rises (table_rise), shared by K3 and K4."""
     if tuple(s.shape) != (n,) or s.dtype != torch.int32 \
             or not s.is_contiguous() or s.device != device:
         raise ValueError(f"{name}: s must be a contiguous (N,) int32 tensor "
                          f"on {device}")
+    for t, r in zip(tables, rises):
+        if tuple(r.shape) != (t.shape[0],) or r.dtype != torch.int32 \
+                or not r.is_contiguous() or r.device != device:
+            raise ValueError(f"{name}: each table's rise must be a "
+                             f"contiguous (nV,) int32 tensor on {device}")
     if not 2 <= n_window <= min(n_layers, W_MAX):
         raise ValueError(f"{name}: window W={n_window} outside 2 <= W <= "
                          f"min(L={n_layers}, {W_MAX})")
 
 
 def _window_outputs(pos, depth_neg, n_attrs=0):
+    """(new_pos, hvel, wvel, ok, layer, miss, clamp, attr or None), and the
+    (list, count) buffers of the miss lanes that the window kernel appends
+    and its repair steps."""
     n = pos.shape[0]
     dev = pos.device
+    flag = lambda: torch.empty(n, dtype=torch.bool, device=dev)
+    ints = lambda k: torch.empty(k, dtype=torch.int32, device=dev)
     return (torch.empty_like(pos), torch.empty_like(pos),
-            torch.empty_like(depth_neg),
-            torch.empty(n, dtype=torch.bool, device=dev),
-            torch.empty(n, dtype=torch.int32, device=dev),
-            torch.empty(n, dtype=torch.bool, device=dev),
-            torch.empty_like(pos) if n_attrs else None)
+            torch.empty_like(depth_neg), flag(), ints(n), flag(), flag(),
+            torch.empty_like(pos) if n_attrs else None), (ints(n), ints(1))
 
 
-def fused_window_streamline_step(pos, depth_neg, nv, vids, s, table,
+def fused_window_streamline_step(pos, depth_neg, nv, vids, s, table, rise,
                                  n_layers: int, n_window: int, dt: float,
                                  euler: bool = False):
     """One streamline step (RK4, or Euler) whose stages read only the
     layers s..s+W-1 of each vertex column.
 
     Args as fused_streamline_step, plus s (N,) int32 window starts in
-    [0, L - W] (step.window_starts) and the window width W = ``n_window``.
+    [0, L - W] (step.window_starts), the table's first rises ``rise``
+    (table_rise) and the window width W = ``n_window``.
     Returns (new_pos (N, 3), hvel (N, 3), wvel (N,), ok (N,) bool,
-    layer (N,) int32, miss (N,) bool).  A miss lane's depth lay within
-    EPS_LAYER of an inner window edge in some stage: its step is recomputed
-    on the full column (K1's arithmetic), so every lane's outputs are the
-    full step's.  layer is the layer at the start position (the next
-    window's centre).
+    layer (N,) int32, miss (N,) bool, clamp (N,) bool).  A lane is a miss
+    when some stage may not resolve as on the full column (step.py, "the
+    layer-window step"): its depth lay within EPS_LAYER of an inner window
+    edge (an edge miss), or the window's clamp or its surface and bottom
+    tests may depart from the full column's (a clamp miss; ``clamp`` flags
+    the lanes that only this test flagged).  A miss lane's step is
+    recomputed on the full column (K1's arithmetic), and a lane that does
+    not miss computes what the full column computes, so every lane's
+    outputs are the full step's.  layer is the layer at the start position
+    (the next window's centre).
 
     CUDA tensors launch the window kernel (counted in
-    ``fused_window_streamline_step.launches``), then K1 masked by the miss
-    flags on the same stream, which recomputes the miss lanes (counted in
-    ``.repair_launches``, not in K1's launches); CPU tensors run
-    ``fused_window_streamline_step_plain``.
+    ``fused_window_streamline_step.launches``), which appends the miss lanes
+    to a list, then K1 over that list on the same stream, which recomputes
+    them (counted in ``.repair_launches``, not in K1's launches); CPU
+    tensors run ``fused_window_streamline_step_plain``.
     """
     name = "fused_window_streamline_step"
     F = table_width(n_layers)
     n, K = _check(name, pos, depth_neg, nv, vids, (table,), F)
-    _check_window(name, s, n, n_layers, n_window, pos.device)
+    _check_window(name, s, n, n_layers, n_window, pos.device, (table,),
+                  (rise,))
     if pos.device.type == "cpu":
         return fused_window_streamline_step_plain(
-            pos, depth_neg, nv, vids, s, table, n_layers, n_window, dt, euler)
+            pos, depth_neg, nv, vids, s, table, rise, n_layers, n_window, dt,
+            euler)
     _kernel_device(name, pos, K, n_layers)
-    out = _window_outputs(pos, depth_neg)
+    out, (lst, cnt) = _window_outputs(pos, depth_neg)
     lib = _library()
     f32 = pos.dtype == torch.float32
     fn = lib.window_streamline_step_f32 if f32 \
@@ -383,20 +408,21 @@ def fused_window_streamline_step(pos, depth_neg, nv, vids, s, table,
     with torch.cuda.device(pos.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
-                 vids.data_ptr(), s.data_ptr(), table.data_ptr(), n, K, F,
-                 n_layers, n_window, float(dt), int(bool(euler)),
-                 *(t.data_ptr() for t in out[:6]), stream)
+                 vids.data_ptr(), s.data_ptr(), table.data_ptr(),
+                 rise.data_ptr(), n, K, F, n_layers, n_window, float(dt),
+                 int(bool(euler)), *(t.data_ptr() for t in out[:7]),
+                 lst.data_ptr(), cnt.data_ptr(), stream)
         _raise_on(name, err)
         fused_window_streamline_step.launches += 1
-        # the miss lanes' full-column step (K1, masked by the miss flags)
+        # the miss lanes' full-column step (K1 over their list)
         err = repair(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
                      vids.data_ptr(), table.data_ptr(), n, K, F, n_layers,
                      float(dt), int(bool(euler)),
-                     *(t.data_ptr() for t in out[:4]), out[5].data_ptr(),
-                     out[4].data_ptr(), stream)
+                     *(t.data_ptr() for t in out[:4]), lst.data_ptr(),
+                     cnt.data_ptr(), out[4].data_ptr(), stream)
         _raise_on(f"{name} (repair)", err)
         fused_window_streamline_step.repair_launches += 1
-    return out[:6]
+    return out[:7]
 
 
 fused_window_streamline_step.launches = 0
@@ -411,15 +437,16 @@ def _window_inputs(table, vids, s, n_layers, n_window, n_attrs):
 
 
 def fused_window_streamline_step_plain(pos, depth_neg, nv, vids, s, table,
-                                       n_layers: int, n_window: int,
+                                       rise, n_layers: int, n_window: int,
                                        dt: float, euler: bool = False):
     """The same step as torch ops: step.window_streamline_step, then the
     miss lanes again through fused_streamline_step_plain with their start
     layer from the full column."""
     vpos, cols, cols_w, ends = _window_inputs(table, vids, s, n_layers,
                                               n_window, 0)
-    new_pos, hvel, wvel, ok, layer, miss = window_streamline_step(
-        cols_w, ends, s, n_layers, pos, depth_neg, nv, vpos, dt, euler)
+    new_pos, hvel, wvel, ok, layer, miss, clamp = window_streamline_step(
+        cols_w, ends, s, n_layers, pos, depth_neg, nv, vpos, dt, euler,
+        cell_rise(rise, vids, nv))
     idx = torch.nonzero(miss)[:, 0]
     if idx.numel():
         full = fused_streamline_step_plain(pos[idx], depth_neg[idx], nv[idx],
@@ -430,24 +457,27 @@ def fused_window_streamline_step_plain(pos, depth_neg, nv, vids, s, table,
         layer[idx] = start_layer(cols[0][idx], pos[idx], depth_neg[idx],
                                  nv[idx], vpos[idx], False)
     return (new_pos, hvel, wvel, ok,
-            torch.clamp(layer, 1, n_layers - 1).to(torch.int32), miss)
+            torch.clamp(layer, 1, n_layers - 1).to(torch.int32), miss, clamp)
 
 
 def fused_window_pathline_step(pos, depth_neg, nv, vids, s, table_f, table_b,
-                               n_layers: int, n_window: int, dt: float,
-                               alphas, euler: bool = False, n_attrs: int = 0):
+                               rise_f, rise_b, n_layers: int, n_window: int,
+                               dt: float, alphas, euler: bool = False,
+                               n_attrs: int = 0):
     """One pathline step (RK4, or Euler) whose stages read only the layers
     s..s+W-1 of both snapshots' columns (one start for both).
 
     Args as fused_pathline_step, plus s and W as in
-    fused_window_streamline_step.  Returns (new_pos, hvel, wvel, ok,
-    layer, miss, attr (N, 3) or None); miss lanes are recomputed on the full
-    columns (K2's arithmetic), and layer is the front snapshot's at the
-    start position.
+    fused_window_streamline_step and each table's first rises (table_rise;
+    each snapshot's window is tested with its own).  Returns (new_pos,
+    hvel, wvel, ok, layer, miss, clamp, attr (N, 3) or None), miss and
+    clamp as fused_window_streamline_step's, the OR over both snapshots;
+    miss lanes are recomputed on the full columns (K2's arithmetic), and
+    layer is the front snapshot's at the start position.
 
     CUDA tensors launch the window kernel (counted in
-    ``fused_window_pathline_step.launches``), then K2 masked by the miss
-    flags (counted in ``.repair_launches``); CPU tensors run
+    ``fused_window_pathline_step.launches``), then K2 over its list of miss
+    lanes (counted in ``.repair_launches``); CPU tensors run
     ``fused_window_pathline_step_plain``.
     """
     name = "fused_window_pathline_step"
@@ -455,14 +485,15 @@ def fused_window_pathline_step(pos, depth_neg, nv, vids, s, table_f, table_b,
         raise ValueError(f"{name}: n_attrs={n_attrs} outside 0..{A_MAX}")
     F = table_width(n_layers, n_attrs)
     n, K = _check(name, pos, depth_neg, nv, vids, (table_f, table_b), F)
-    _check_window(name, s, n, n_layers, n_window, pos.device)
+    _check_window(name, s, n, n_layers, n_window, pos.device,
+                  (table_f, table_b), (rise_f, rise_b))
     if pos.device.type == "cpu":
         return fused_window_pathline_step_plain(
-            pos, depth_neg, nv, vids, s, table_f, table_b, n_layers,
-            n_window, dt, alphas, euler, n_attrs)
+            pos, depth_neg, nv, vids, s, table_f, table_b, rise_f, rise_b,
+            n_layers, n_window, dt, alphas, euler, n_attrs)
     _kernel_device(name, pos, K, n_layers)
-    out = _window_outputs(pos, depth_neg, n_attrs)
-    attr = None if out[6] is None else out[6].data_ptr()
+    out, (lst, cnt) = _window_outputs(pos, depth_neg, n_attrs)
+    attr = None if out[7] is None else out[7].data_ptr()
     lib = _library()
     f32 = pos.dtype == torch.float32
     fn = lib.window_pathline_step_f32 if f32 \
@@ -473,17 +504,19 @@ def fused_window_pathline_step(pos, depth_neg, nv, vids, s, table_f, table_b,
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
                  vids.data_ptr(), s.data_ptr(), table_f.data_ptr(),
-                 table_b.data_ptr(), n, K, F, n_layers, n_window, n_attrs,
-                 float(dt), a1, a2, a4, int(bool(euler)),
-                 *(t.data_ptr() for t in out[:6]), attr, stream)
+                 table_b.data_ptr(), rise_f.data_ptr(), rise_b.data_ptr(), n,
+                 K, F, n_layers, n_window, n_attrs, float(dt), a1, a2, a4,
+                 int(bool(euler)), *(t.data_ptr() for t in out[:7]),
+                 lst.data_ptr(), cnt.data_ptr(), attr, stream)
         _raise_on(name, err)
         fused_window_pathline_step.launches += 1
-        # the miss lanes' full-column step (K2, masked by the miss flags)
+        # the miss lanes' full-column step (K2 over their list)
         err = repair(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
                      vids.data_ptr(), table_f.data_ptr(), table_b.data_ptr(),
                      n, K, F, n_layers, n_attrs, float(dt), a1, a2, a4,
                      int(bool(euler)), *(t.data_ptr() for t in out[:4]),
-                     attr, out[5].data_ptr(), out[4].data_ptr(), stream)
+                     attr, lst.data_ptr(), cnt.data_ptr(), out[4].data_ptr(),
+                     stream)
         _raise_on(f"{name} (repair)", err)
         fused_window_pathline_step.repair_launches += 1
     return out
@@ -494,9 +527,9 @@ fused_window_pathline_step.repair_launches = 0
 
 
 def fused_window_pathline_step_plain(pos, depth_neg, nv, vids, s, table_f,
-                                     table_b, n_layers: int, n_window: int,
-                                     dt: float, alphas, euler: bool = False,
-                                     n_attrs: int = 0):
+                                     table_b, rise_f, rise_b, n_layers: int,
+                                     n_window: int, dt: float, alphas,
+                                     euler: bool = False, n_attrs: int = 0):
     """The same step as torch ops: step.window_pathline_step, then the miss
     lanes again through fused_pathline_step_plain with their start layer
     from the front snapshot's full column."""
@@ -506,9 +539,10 @@ def fused_window_pathline_step_plain(pos, depth_neg, nv, vids, s, table_f,
                                       n_attrs)
     a = tuple(torch.as_tensor(x, dtype=pos.dtype, device=pos.device)
               for x in alphas)
-    new_pos, hvel, wvel, ok, attr, layer, miss = window_pathline_step(
+    new_pos, hvel, wvel, ok, attr, layer, miss, clamp = window_pathline_step(
         cols_fw, cols_bw, ends, s, n_layers, pos, depth_neg, nv, vpos, dt, a,
-        euler, n_attrs)
+        euler, (cell_rise(rise_f, vids, nv), cell_rise(rise_b, vids, nv)),
+        n_attrs)
     idx = torch.nonzero(miss)[:, 0]
     if idx.numel():
         full = fused_pathline_step_plain(
@@ -521,7 +555,7 @@ def fused_window_pathline_step_plain(pos, depth_neg, nv, vids, s, table_f,
         layer[idx] = start_layer(cols_f[0][idx], pos[idx], depth_neg[idx],
                                  nv[idx], vpos[idx], True)
     return (new_pos, hvel, wvel, ok,
-            torch.clamp(layer, 1, n_layers - 1).to(torch.int32), miss,
+            torch.clamp(layer, 1, n_layers - 1).to(torch.int32), miss, clamp,
             attr if n_attrs else None)
 
 

@@ -80,6 +80,7 @@ class MigratingTrajectories:
     final_ids: torch.Tensor           # (P, cap) int32, -1: empty slot
     dropped: torch.Tensor             # (P,) int32 particles lost to capacity
     window_misses: torch.Tensor       # (P,) int32 (particle, step) misses
+    window_clamp_misses: torch.Tensor  # (P,) int32 of them the clamp test's
     migrated: torch.Tensor            # (P,) int32 particles sent by shard p
 
 
@@ -347,6 +348,8 @@ def run_advection_migrating(mesh: MPASMesh, sol: SolutionFields,
             layer=local(hints[mine], 1, torch.int32) if n_window else None,
             misses=torch.zeros(cap, dtype=torch.int32, device=dev)
             if n_window else None,
+            clamp_misses=torch.zeros(cap, dtype=torch.int32, device=dev)
+            if n_window else None,
             pid=pid, rec_ids=rec_ids))
         shards.append(_Shard(
             owner=torch.as_tensor(dec.owner[p], device=dev),
@@ -375,6 +378,9 @@ def run_advection_migrating(mesh: MPASMesh, sol: SolutionFields,
         dropped=stack(sh.dropped for sh in shards).to(torch.int32),
         window_misses=stack(
             pt.misses.sum() if n_window else torch.zeros((), device=d0)
+            for pt in parts).to(torch.int32),
+        window_clamp_misses=stack(
+            pt.clamp_misses.sum() if n_window else torch.zeros((), device=d0)
             for pt in parts).to(torch.int32),
         migrated=stack(sh.sent for sh in shards).to(torch.int32))
 

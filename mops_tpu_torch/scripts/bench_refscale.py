@@ -154,6 +154,15 @@ def path_record(mesh, sols, case: Case, settings) -> dict:
     return path
 
 
+def window_misses(raw) -> dict:
+    """A run's window misses (particle-steps; 0 without a window) and
+    those of them that only the clamp test flagged (the rest are edge
+    misses)."""
+    count = lambda t: 0 if t is None else int(t.sum())
+    return {"window_misses": count(raw.window_misses),
+            "window_clamp_misses": count(raw.window_clamp_misses)}
+
+
 def log(rec):
     print(json.dumps(rec), flush=True)
 
@@ -181,9 +190,8 @@ def streamline_case(name, case: Case, n_steps=100, device="cuda",
     raw, seconds, peak, launches = _timed(dev, lambda: advect.run_advection(
         mesh, sol, case.seeds, case.cells, cfg, dtype=dtype, device=dev,
         use_window=use_window))
-    misses = 0 if raw.window_misses is None else int(raw.window_misses.sum())
     rec = _record(name, case, sol.vertex_ztop.shape[1], n_steps, seconds,
-                  peak, launches, g, dev, window_misses=misses,
+                  peak, launches, g, dev, **window_misses(raw),
                   path=path_record(mesh, [sol], case, cfg))
     return rec, raw
 
@@ -232,9 +240,8 @@ def case_D(n_cells=1_000_000, n_layers=40, n_particles=10_000_000,
     raw, seconds, peak, launches = _timed(dev, lambda: advect.run_advection(
         mesh, front, case.seeds, case.cells, cfg, back=back, dtype=dtype,
         device=dev, chunk=chunk))
-    misses = 0 if raw.window_misses is None else int(raw.window_misses.sum())
     rec = _record("config4-spec", case, n_layers, n_steps, seconds, peak,
-                  launches, g, dev, chunk=chunk, window_misses=misses,
+                  launches, g, dev, chunk=chunk, **window_misses(raw),
                   path=path_record(mesh, [front, back], case, cfg))
     return rec, raw.final_position
 
@@ -286,6 +293,7 @@ def case_E(n_cells=1_000_000, n_layers=60, n_particles=10_000_000,
                   launches, g, dev, shards=n_shards,
                   dropped=int(out.dropped.sum()),
                   window_misses=int(out.window_misses.sum()),
+                  window_clamp_misses=int(out.window_clamp_misses.sum()),
                   migrated=int(out.migrated.sum()),
                   occupancy=[float(occ.min()), float(np.median(occ)),
                              float(occ.max())])

@@ -347,10 +347,38 @@ def start_layer(ztop_cols, pos, depth_neg, nv, vpos, pathline: bool):
 # summed over the window and clamped from the window's top, layers outside it
 # read as +BIG above and -BIG below, and the surface and bottom tests use the
 # unclamped column ends (of the front snapshot, for both snapshots of a
-# pathline).  A depth within EPS_LAYER of a window edge that is not a column
-# end could belong to a layer outside: that lane is a miss.  Off the miss
-# lanes every comparison resolves as in the full column, so the results are
-# the full step's.
+# pathline).  The full column's results are the reference; a lane is a miss,
+# stepped again on the full column, unless every comparison of each stage
+# resolves as on the full column.  Two kinds of miss:
+# - edge: a depth within EPS_LAYER of an inner window edge could belong to a
+#   layer outside the window;
+# - clamp: the window's clamped profile, or its surface and bottom tests, may
+#   not be the full column's.  The window's clamp equals the full column's
+#   clamped values z' on [s, s+W) exactly when the raw interpolated z[s] <=
+#   z'[s-1] (then z'[s] = z[s], and from there both run the same recurrence
+#   on the same values); at s = 0 always.  The window cannot read the layers
+#   above it, so it tests a sufficient condition instead, which errs toward a
+#   miss (a false miss costs only a repair).  With rise_v the first layer
+#   l >= 1 at which vertex v's raw column rises (ztop_v[l] > ztop_v[l-1]; L
+#   if it never does, first_rise), a stage at s > 0 is a clamp miss when s >=
+#   min over the cell's vertices of rise_v, or when a weight is not >= 0
+#   (the areas are unsigned, so only NaN; the kernels read it off the raw
+#   weights' sum: NaN, 0 or infinite).  Why that suffices: with every
+#   weight >= 0 and every vertex column not rising on layers 0..s, each
+#   profile value is a sum of w_k * ztop_k[l] in a fixed order (the
+#   kernels' fma chain over k = 0..nv-1), and round-to-nearest addition and
+#   multiplication by w_k >= 0 are monotone in each argument, so the
+#   interpolated profile does not rise on 0..s even in floats; the clamp
+#   then changes nothing there, z'[s-1] = z[s-1] >= z[s].  The surface and bottom tests: the full column compares the depth
+#   with z'[0] and z'[L-1], the window with the raw ends (the front
+#   snapshot's, in both snapshots), so a stage is also a clamp miss when
+#   depth > z0 + EPS_LAYER and depth < zL - EPS_LAYER do not resolve as
+#   against the window's own first and last clamped values.  Where the window
+#   holds the column's top (bottom) those are z'[0] (z'[L-1]), so the test is
+#   exact; elsewhere a lane whose raw-end verdict differs from the full
+#   column's is flagged by it or is an edge miss already (z' does not rise,
+#   so z'[0] >= z'[s] and z'[L-1] <= z'[s+W-1]).
+# Off the miss lanes the results are the full step's.
 
 BIG = 1e30
 
@@ -389,11 +417,43 @@ def _window_sentinels(z: torch.Tensor, s: torch.Tensor, n_layers: int):
     return full.scatter(1, idx, z)
 
 
+def first_rise(ztop: torch.Tensor) -> torch.Tensor:
+    """(nV,) int32: the first layer l >= 1 at which each (nV, L) raw ztop
+    column rises, ztop[l] > ztop[l-1], or L where it never does."""
+    n, L = ztop.shape
+    rises = ztop[:, 1:] > ztop[:, :-1]
+    first = torch.argmax(rises.to(torch.uint8), dim=1) + 1
+    return torch.where(rises.any(dim=1), first, L).to(torch.int32)
+
+
+def cell_rise(rise: torch.Tensor, vids: torch.Tensor,
+              nv: torch.Tensor) -> torch.Tensor:
+    """(N,) the least first_rise over each cell's nv vertices (vids (N, K)
+    clipped to >= 0)."""
+    lane = torch.arange(vids.shape[1], device=vids.device)[None, :]
+    r = rise[vids.long()]
+    big = torch.iinfo(r.dtype).max
+    return torch.where(lane < nv[:, None], r, big).amin(dim=1)
+
+
 def _window_miss(z, s, depth, n_layers: int):
-    """Depth within EPS_LAYER of an inner window edge."""
+    """Edge miss: depth within EPS_LAYER of an inner window edge."""
     W = z.shape[1]
     return ((s > 0) & (depth >= z[:, 0] - EPS_LAYER)) | \
         ((s + W < n_layers) & (depth <= z[:, -1] + EPS_LAYER))
+
+
+def _clamp_top_miss(w, s, rise_min):
+    """Clamp miss at the window's top: s > 0 and either the cell's first
+    rise at or above s, or a weight that is not >= 0."""
+    return (s > 0) & ((s >= rise_min) | (~(w >= 0.0)).any(dim=1))
+
+
+def _ends_miss(z, depth, z_surf, z_bot):
+    """Clamp miss of the surface and bottom tests: the raw ends' verdicts
+    against the window's first and last clamped values'."""
+    return ((depth > z_surf + EPS_LAYER) != (depth > z[:, 0] + EPS_LAYER)) | \
+        ((depth < z_bot - EPS_LAYER) != (depth < z[:, -1] - EPS_LAYER))
 
 
 def _window_pick(cols_w, w, s, layer):
@@ -425,9 +485,10 @@ def _layer_search_linear_window(z, s, depth, z_surf, z_bot, n_layers: int):
 
 
 def _window_column(cols_w, w, s, depth, z_surf, z_bot, n_layers, pathline,
-                   n_attrs=0):
+                   rise_min, n_attrs=0):
     """One snapshot's window column of a stage: (hvel, wvel, attrs, ok of
-    the search and the lerp, ok_mag of the streamline guard, layer, miss)."""
+    the search and the lerp, ok_mag of the streamline guard, layer, edge
+    miss, clamp miss); ``rise_min`` is cell_rise of the snapshot."""
     ztop_w, vel_w, wvel_w, attrs_w = cols_w
     z = _clamp_profile(torch.einsum("nk,nkw->nw", w, ztop_w), True)
     zs = _window_sentinels(z, s, n_layers)
@@ -448,39 +509,49 @@ def _window_column(cols_w, w, s, depth, z_surf, z_bot, n_layers, pathline,
         a_up, a_dn = _window_pick(attrs_w[..., ai], w, s, layer)
         att.append(t * a_up + (1.0 - t) * a_dn)
     return (hvel, wvel, att, ok_layer & ok_denom, ok_mag, layer,
-            _window_miss(z, s, depth, n_layers))
+            _window_miss(z, s, depth, n_layers),
+            _clamp_top_miss(w, s, rise_min)
+            | _ends_miss(z, depth, z_surf, z_bot))
 
 
 def _window_rk(eval_at, pos, dt: float, euler: bool, alphas):
     """RK4 (or Euler) over a window stage evaluation eval_at(p, a) ->
-    (hvel, wvel, attr, ok, layer, miss).  Returns (new_pos, hvel, wvel, ok,
-    attr, the first stage's layer, the OR of the stages' misses)."""
+    (hvel, wvel, attr, ok, layer, edge, clamp).  Returns (new_pos, hvel,
+    wvel, ok, attr, the first stage's layer, miss, clamp): miss is the OR of
+    every stage's edge and clamp misses, clamp the lanes that only the clamp
+    test flagged."""
     a1, a2, a4 = alphas
     r = _norm(pos)
     if euler:
-        hvel, wvel, attr, ok, layer, miss = eval_at(pos, a1)
+        hvel, wvel, attr, ok, layer, edge, clamp = eval_at(pos, a1)
         axis = geo.rotation_axis(pos, hvel)
         theta = _norm(hvel) * dt / torch.clamp(r, min=EPS_ZERO)
         return (geo.rotate_around_axis(pos, axis, theta), hvel, wvel, ok,
-                attr, layer, miss)
-    k1, w1, at1, ok1, layer, m1 = eval_at(pos, a1)
-    k2, w2, at2, ok2, _, m2 = eval_at(_advect_on_sphere(pos, k1, dt * 0.5), a2)
-    k3, w3, at3, ok3, _, m3 = eval_at(_advect_on_sphere(pos, k2, dt * 0.5), a2)
-    k4, w4, at4, ok4, _, m4 = eval_at(_advect_on_sphere(pos, k3, dt), a4)
+                attr, layer, edge | clamp, clamp & ~edge)
+    k1, w1, at1, ok1, layer, e1, c1 = eval_at(pos, a1)
+    k2, w2, at2, ok2, _, e2, c2 = eval_at(
+        _advect_on_sphere(pos, k1, dt * 0.5), a2)
+    k3, w3, at3, ok3, _, e3, c3 = eval_at(
+        _advect_on_sphere(pos, k2, dt * 0.5), a2)
+    k4, w4, at4, ok4, _, e4, c4 = eval_at(_advect_on_sphere(pos, k3, dt), a4)
     hvel = (k1 + 2.0 * k2 + 2.0 * k3 + k4) / 6.0
     wvel = (w1 + 2.0 * w2 + 2.0 * w3 + w4) / 6.0
     attr = (at1 + 2.0 * at2 + 2.0 * at3 + at4) / 6.0
+    edge, clamp = e1 | e2 | e3 | e4, c1 | c2 | c3 | c4
     return (_rk4_endpoint(pos, hvel, r, dt), hvel, wvel,
-            ok1 & ok2 & ok3 & ok4, attr, layer, m1 | m2 | m3 | m4)
+            ok1 & ok2 & ok3 & ok4, attr, layer, edge | clamp, clamp & ~edge)
 
 
 def window_streamline_step(cols_w, z_ends, s, n_layers: int, pos, depth_neg,
-                           nv, vpos, dt: float, euler: bool):
+                           nv, vpos, dt: float, euler: bool, rise_min):
     """One streamline step whose stages read only the layer window at s.
     ``cols_w`` = (ztop, vel, wvel, None) window columns (window_cols),
-    ``z_ends`` = the (N, K) surface and bottom ztop of the cell's vertices.
-    Returns (new_pos, hvel, wvel, ok, layer, miss); the values of miss
-    lanes are undefined (the caller recomputes them on the full column)."""
+    ``z_ends`` = the (N, K) surface and bottom ztop of the cell's vertices,
+    ``rise_min`` = the cell's least first rise (cell_rise).
+    Returns (new_pos, hvel, wvel, ok, layer, miss, clamp): miss flags an
+    edge or a clamp miss in some stage, clamp the lanes flagged by the clamp
+    test alone; the values of miss lanes are undefined (the caller
+    recomputes them on the full column)."""
     lane_valid = torch.arange(vpos.shape[1], device=pos.device)[None, :] \
         < nv[:, None]
 
@@ -489,25 +560,27 @@ def window_streamline_step(cols_w, z_ends, s, n_layers: int, pos, depth_neg,
         w = wachspress_weights(p, vpos, nv)
         z0 = torch.einsum("nk,nk->n", w, z_ends[0])
         zL = torch.einsum("nk,nk->n", w, z_ends[1])
-        hvel, wvel, _, ok_col, ok_mag, layer, miss = _window_column(
-            cols_w, w, s, depth_neg, z0, zL, n_layers, False)
+        hvel, wvel, _, ok_col, ok_mag, layer, edge, clamp = _window_column(
+            cols_w, w, s, depth_neg, z0, zL, n_layers, False, rise_min)
         ok = in_mesh & ok_col & ok_mag & (_norm(hvel) >= EPS_ZERO)
         return (_where0(ok[:, None], hvel), _where0(ok, wvel),
-                torch.zeros_like(p), ok, layer, miss)
+                torch.zeros_like(p), ok, layer, edge, clamp)
 
-    new_pos, hvel, wvel, ok, _, layer, miss = _window_rk(
+    new_pos, hvel, wvel, ok, _, layer, miss, clamp = _window_rk(
         eval_at, pos, dt, euler, (None, None, None))
-    return new_pos, hvel, wvel, ok, layer, miss
+    return new_pos, hvel, wvel, ok, layer, miss, clamp
 
 
 def window_pathline_step(cols_f_w, cols_b_w, z_ends, s, n_layers: int, pos,
                          depth_neg, nv, vpos, dt: float, alphas, euler: bool,
-                         n_attrs: int = 0):
+                         rise_min, n_attrs: int = 0):
     """One pathline step whose stages read only the layer window at s of
     both snapshots (one start s for both; the front snapshot's surface and
-    bottom serve both, as in the TPU kernel).  Returns (new_pos, hvel, wvel,
-    ok, attr (N, 3), layer of the front snapshot, miss); the values of miss
-    lanes are undefined."""
+    bottom serve both, as in the TPU kernel).  ``rise_min`` = (front, back)
+    cell_rise: each snapshot's window is tested with its own.  Returns
+    (new_pos, hvel, wvel, ok, attr (N, 3), layer of the front snapshot,
+    miss, clamp) as window_streamline_step's; the values of miss lanes are
+    undefined."""
     lane_valid = torch.arange(vpos.shape[1], device=pos.device)[None, :] \
         < nv[:, None]
 
@@ -516,10 +589,12 @@ def window_pathline_step(cols_f_w, cols_b_w, z_ends, s, n_layers: int, pos,
         w = wachspress_weights(p, vpos, nv)
         z0 = torch.einsum("nk,nk->n", w, z_ends[0])
         zL = torch.einsum("nk,nk->n", w, z_ends[1])
-        hv_f, wv_f, at_f, ok_f, _, layer, miss_f = _window_column(
-            cols_f_w, w, s, depth_neg, z0, zL, n_layers, True, n_attrs)
-        hv_b, wv_b, at_b, ok_b, _, _, miss_b = _window_column(
-            cols_b_w, w, s, depth_neg, z0, zL, n_layers, True, n_attrs)
+        hv_f, wv_f, at_f, ok_f, _, layer, edge_f, clamp_f = _window_column(
+            cols_f_w, w, s, depth_neg, z0, zL, n_layers, True, rise_min[0],
+            n_attrs)
+        hv_b, wv_b, at_b, ok_b, _, _, edge_b, clamp_b = _window_column(
+            cols_b_w, w, s, depth_neg, z0, zL, n_layers, True, rise_min[1],
+            n_attrs)
         hvel = a * hv_b + (1.0 - a) * hv_f
         wvel = a * wv_b + (1.0 - a) * wv_f
         attr = torch.zeros_like(p)
@@ -527,6 +602,7 @@ def window_pathline_step(cols_f_w, cols_b_w, z_ends, s, n_layers: int, pos,
             attr[:, ai] = a * at_b[ai] + (1.0 - a) * at_f[ai]
         ok = in_mesh & ok_f & ok_b
         return (_where0(ok[:, None], hvel), _where0(ok, wvel),
-                _where0(ok[:, None], attr), ok, layer, miss_f | miss_b)
+                _where0(ok[:, None], attr), ok, layer, edge_f | edge_b,
+                clamp_f | clamp_b)
 
     return _window_rk(eval_at, pos, dt, euler, alphas)

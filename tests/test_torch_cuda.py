@@ -266,13 +266,24 @@ def test_kernel_wide_columns_match_plain_f64(card, kind, L):
         assert bool(got[3].any()) and not bool(got[3][:16].any())
 
 
+def _listed(only):
+    """The masked forms' list of the flagged lanes, in reverse order (the
+    window kernel appends them in any order), in an (N,) buffer, and its
+    count."""
+    idx = torch.nonzero(only)[:, 0].flip(0).to(torch.int32)
+    lst = torch.full(only.shape, -1, dtype=torch.int32, device=only.device)
+    lst[:len(idx)] = idx
+    return lst, torch.tensor([len(idx)], dtype=torch.int32,
+                             device=only.device)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("flagged", ["none", "some", "all"])
 def test_kernel_masked_form_f64(card, flagged):
-    """K1's masked form (the streamline window path's repair launch): a
-    flagged lane's outputs are the unmasked step's bit for bit and its layer
-    the full column's at the start position; an unflagged lane's outputs
-    stay as they were."""
+    """K1's masked form (the streamline window path's repair launch over the
+    window kernel's list of miss lanes): a listed lane's outputs are the
+    unmasked step's bit for bit and its layer the full column's at the
+    start position; an unlisted lane's outputs stay as they were."""
     _, _, dev = card
     pos, dn, nv, vids, tf, _, L = _wide_inputs("voronoi", 80, dev)
     table = tf[:, :sk.table_width(L)].contiguous()
@@ -284,11 +295,12 @@ def test_kernel_masked_form_f64(card, flagged):
     out = [torch.full_like(pos, 7.0), torch.full_like(pos, 7.0),
            torch.full_like(dn, 7.0), torch.zeros_like(only),
            torch.full((n,), -5, dtype=torch.int32, device=dev)]
+    lst, cnt = _listed(only)
     err = sk._library().streamline_step_f64(
         pos.data_ptr(), dn.data_ptr(), nv.data_ptr(), vids.data_ptr(),
         table.data_ptr(), n, K, table.shape[1], L, DT, 0,
-        *(t.data_ptr() for t in out[:4]), only.data_ptr(), out[4].data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
+        *(t.data_ptr() for t in out[:4]), lst.data_ptr(), cnt.data_ptr(),
+        out[4].data_ptr(), torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
     for a, b in zip(out[:4], full):
@@ -321,15 +333,67 @@ def test_window_streamline_step_bit_equal_to_kernel(card, dtype):
     moved = torch.arange(len(s), device=dev) % 5 == 2    # these miss
     s = torch.where(moved, torch.clamp(s + 8, 0, L - 8), s).to(
         torch.int32).contiguous()
+    rise = sk.table_rise(table, L)
     for euler in (False, True):
-        win = sk.fused_window_streamline_step(pos, dn, nv, vids, s, table, L,
-                                              8, DT, euler=euler)
+        win = sk.fused_window_streamline_step(pos, dn, nv, vids, s, table,
+                                              rise, L, 8, DT, euler=euler)
         full = fused_streamline_step(pos, dn, nv, vids, table, L, DT,
                                      euler=euler)
         torch.cuda.synchronize()
         assert 0 < int(win[5].sum()) < len(nv) // 2
         assert bool(win[3][~win[5]].any())
+        # monotone columns: no clamp miss off the dead lanes (a NaN
+        # position's weights are NaN, not >= 0)
+        assert not bool(win[6][torch.isfinite(pos).all(dim=1)].any())
         for a, b in zip(win[:4], full):
+            assert torch.equal(a.nan_to_num(1.5), b.nan_to_num(1.5))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("L", [60, 80])
+@pytest.mark.parametrize("kernel", ["k3", "k4"])
+def test_window_kernels_equal_full_step_on_ascending_columns(card, kernel, L,
+                                                             dtype):
+    """Where raw ztop columns ascend (every sixth vertex disturbed), the
+    window kernels give K1's (K2's) outputs bit for bit on every lane, at
+    L60 (the L <= 64 repair instance) and L80 (the generic one): a lane
+    either computes what the full column computes or is flagged (edge or
+    clamp miss) and repaired.  Some lanes only the clamp test flags."""
+    _, _, dev = card
+    pos, dn, nv, vids, tf, tb, L = (
+        a.to(dtype) if torch.is_tensor(a) and a.is_floating_point() else a
+        for a in _wide_inputs("voronoi", L, dev))
+    F = sk.table_width(L, 2 if kernel == "k4" else 0)
+    tf, tb = tf[:, :F].contiguous(), tb[:, :F].contiguous()
+    rows = tf[vids.long()]
+    s = window_starts(start_layer(rows[..., 3:3 + L], pos, dn, nv,
+                                  rows[..., :3], kernel == "k4"), L, 8)
+    s = s.contiguous()
+    alphas = (0.3, 0.305, 0.31)
+    for euler in (False, True):
+        if kernel == "k3":
+            win = sk.fused_window_streamline_step(
+                pos, dn, nv, vids, s, tf, sk.table_rise(tf, L), L, 8, DT,
+                euler=euler)
+            full = fused_streamline_step(pos, dn, nv, vids, tf, L, DT,
+                                         euler=euler)
+        else:
+            win = sk.fused_window_pathline_step(
+                pos, dn, nv, vids, s, tf, tb, sk.table_rise(tf, L),
+                sk.table_rise(tb, L), L, 8, DT, alphas, euler=euler,
+                n_attrs=2)
+            full = fused_pathline_step(pos, dn, nv, vids, tf, tb, L, DT,
+                                       alphas, euler=euler, n_attrs=2)
+        torch.cuda.synchronize()
+        clamp = win[6]
+        assert bool(clamp.any()) and bool((~win[5]).any())
+        assert not bool((clamp & ~win[5]).any())
+        outs = list(zip(win[:4], full[:4]))
+        if kernel == "k4":
+            outs.append((win[7], full[4]))
+        for a, b in outs:
             assert torch.equal(a.nan_to_num(1.5), b.nan_to_num(1.5))
 
 
@@ -359,9 +423,10 @@ def test_pathline_kernel_wide_columns_match_plain_f64(card, kind, L):
 @pytest.mark.cuda
 @pytest.mark.parametrize("flagged", ["none", "some", "all"])
 def test_pathline_kernel_masked_form_f64(card, flagged):
-    """K2's masked form (the window path's repair launch): a flagged lane's
-    outputs are the unmasked step's and its layer the front column's at the
-    start position; an unflagged lane's outputs stay as they were."""
+    """K2's masked form (the window path's repair launch over the window
+    kernel's list of miss lanes): a listed lane's outputs are the unmasked
+    step's and its layer the front column's at the start position; an
+    unlisted lane's outputs stay as they were."""
     _, _, dev = card
     pos, dn, nv, vids, tf, tb, L = _wide_inputs("voronoi", 80, dev)
     n, K = vids.shape
@@ -375,11 +440,12 @@ def test_pathline_kernel_masked_form_f64(card, flagged):
            torch.full_like(dn, 7.0), torch.zeros_like(only),
            torch.full_like(pos, 7.0),
            torch.full((n,), -5, dtype=torch.int32, device=dev)]
+    lst, cnt = _listed(only)
     err = sk._library().pathline_step_f64(
         pos.data_ptr(), dn.data_ptr(), nv.data_ptr(), vids.data_ptr(),
         tf.data_ptr(), tb.data_ptr(), n, K, tf.shape[1], L, 2, DT, *alphas, 0,
-        *(t.data_ptr() for t in out[:5]), only.data_ptr(), out[5].data_ptr(),
-        torch.cuda.current_stream().cuda_stream)
+        *(t.data_ptr() for t in out[:5]), lst.data_ptr(), cnt.data_ptr(),
+        out[5].data_ptr(), torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
     for a, b in zip(out[:5], full[:5]):
@@ -421,7 +487,8 @@ def test_window_kernel_matches_plain_f64(card, card_back, path, euler):
         s = _window_starts(pos, dn, nv, vids, table, L)
         fn, plain = sk.fused_window_streamline_step, \
             sk.fused_window_streamline_step_plain
-        args, extra, kw = (pos, dn, nv, vids, s, table, L, W, DT), (), {}
+        args, extra, kw = (pos, dn, nv, vids, s, table,
+                           sk.table_rise(table, L), L, W, DT), (), {}
     else:
         n_attrs = int(path[-1])
         pos, dn, nv, vids, tf, tb, L = _pathline_inputs(mesh, sol, card_back,
@@ -430,8 +497,8 @@ def test_window_kernel_matches_plain_f64(card, card_back, path, euler):
         s = _window_starts(pos, dn, nv, vids, tf, L)
         fn, plain = sk.fused_window_pathline_step, \
             sk.fused_window_pathline_step_plain
-        args, extra = (pos, dn, nv, vids, s, tf, tb, L, W, DT), \
-            ((0.996, 1.0, 1.0),)
+        args, extra = (pos, dn, nv, vids, s, tf, tb, sk.table_rise(tf, L),
+                       sk.table_rise(tb, L), L, W, DT), ((0.996, 1.0, 1.0),)
         kw = {"n_attrs": n_attrs}
     full = sk.fused_pathline_step if path != "streamline" \
         else sk.fused_streamline_step
@@ -445,14 +512,14 @@ def test_window_kernel_matches_plain_f64(card, card_back, path, euler):
     want = plain(*args, *extra, euler=euler, **kw)
     for a, b, tol in zip(got[:3], want[:3], (1e-6, 1e-10, 1e-12)):
         torch.testing.assert_close(a, b, rtol=0, atol=tol, equal_nan=True)
-    for a, b in zip(got[3:6], want[3:6]):                # ok, layer, miss
+    for a, b in zip(got[3:7], want[3:7]):         # ok, layer, miss, clamp
         assert torch.equal(a, b)
     assert 0 < int(got[5].sum()) < len(nv) // 2           # some lanes missed
     assert not bool(got[3][:16].any()) and bool(got[3][64:].any())
     if path == "pathline_2":
-        torch.testing.assert_close(got[6], want[6], rtol=0, atol=1e-8)
+        torch.testing.assert_close(got[7], want[7], rtol=0, atol=1e-8)
     elif path != "streamline":
-        assert got[6] is None and want[6] is None
+        assert got[7] is None and want[7] is None
 
 
 @pytest.mark.cuda
@@ -495,11 +562,16 @@ def test_window_kernel_ceilings_raise(card):
     pos, dn, nv, vids, table, L = _step_inputs(mesh, sol, dev)
     s = torch.zeros(len(nv), dtype=torch.int32, device=dev)
     wide = torch.zeros((len(nv), 21), dtype=torch.int32, device=dev)
+    rise = sk.table_rise(table, L)
     with pytest.raises(ValueError, match="ceilings"):
-        sk.fused_window_streamline_step(pos, dn, nv, wide, s, table, L, W, DT)
+        sk.fused_window_streamline_step(pos, dn, nv, wide, s, table, rise, L,
+                                        W, DT)
     with pytest.raises(ValueError, match="window"):
-        sk.fused_window_streamline_step(pos, dn, nv, vids, s, table, L, L + 1,
-                                        DT)
+        sk.fused_window_streamline_step(pos, dn, nv, vids, s, table, rise, L,
+                                        L + 1, DT)
+    with pytest.raises(ValueError, match="rise"):
+        sk.fused_window_streamline_step(pos, dn, nv, vids, s, table,
+                                        rise.long(), L, W, DT)
 
 
 # --- the row-gather probe (K5) ------------------------------------------------
@@ -744,8 +816,9 @@ def test_generic_pathline_kernels_match_plain(card, kernel, L, dtype):
             else:
                 fn, plain = (sk.fused_window_pathline_step,
                              sk.fused_window_pathline_step_plain)
-                args, flags, attr = (pos, dn, nv, vids, s, *tabs), \
-                    (3, 4, 5), 6
+                args, flags, attr = (pos, dn, nv, vids, s, *tabs,
+                                     *(sk.table_rise(t, L) for t in tabs)), \
+                    (3, 4, 5, 6), 7
                 extra = (L, W, DT, alphas)
             # K2, or K4's masked K2 repair: the generic instance (above)
             key = "k2" if kernel == "k2" else "k4 repair"

@@ -23,7 +23,7 @@ import mops_tpu as mt
 import mops_tpu_torch as mtt
 from mops_tpu.parallel import migrate as jmig
 from mops_tpu.parallel.decompose import partition_cells
-from mops_tpu_torch import advect
+from mops_tpu_torch import advect, bench
 from mops_tpu_torch.from_jax import mesh_from_jax, solution_from_jax
 from mops_tpu_torch.parallel import reassemble, run_advection_migrating
 
@@ -215,3 +215,36 @@ def test_losses_counted_as_jax_counts_them(mesh, sol, jax_runs, name):
     assert len(survivors) == len(set(survivors))
     assert len(survivors) + dropped == 64
     _assert_counts_equal(res, jax_runs[name][0])
+
+
+def test_migrating_crossing_case_with_rising_columns():
+    """The bench's 3,000-cell L60 crossing case, whose field has a vertex
+    column that rises (the window path's clamp misses, lane 644 of
+    tests/test_torch_refscale.py among them), 2,048 seeds over 20 steps of
+    120 s at float32 through the window path (W = 8) on 8 CPU shards:
+    bit-equal to the single run, with the same window and clamp-miss
+    counts, so each shard's stepper takes the first rises of its own local
+    tables (advect.make_stepper) and flags the lanes the single run
+    flags."""
+    mesh, sol, seeds, cells = bench.build_case(
+        3000, 60, 2048, device="cpu", **bench.CROSSING)
+    depths = mtt.seeding.linear_depth_profile(2048, 10, 2500)
+    cfg = mtt.TrajectorySettings(
+        delta_t=120, simulation_duration=120 * 20, record_t=120 * 5,
+        particle_depths=depths, fail_mode=mtt.FailMode.ZERO)
+    res = run_advection_migrating(mesh, sol, seeds, cells, cfg, devices=CPU8,
+                                  dtype=torch.float32, migrate_every=4,
+                                  capacity_factor=4.0, use_window=True)
+    single = mtt.run_advection(mesh, sol, seeds, cells, cfg,
+                               dtype=torch.float32, device="cpu",
+                               use_window=True)
+    assert int(res.dropped.sum()) == 0 and int(res.migrated.sum()) > 0
+    clamp = int(single.window_clamp_misses.sum())
+    assert clamp > 0
+    assert int(res.window_clamp_misses.sum()) == clamp
+    assert int(res.window_misses.sum()) == int(single.window_misses.sum())
+    points, vels, _, fpos, fdepth = reassemble(res, len(seeds), seeds)
+    assert torch.equal(points, single.points)
+    assert torch.equal(vels, single.velocities)
+    assert torch.equal(fpos, single.final_position)
+    assert torch.equal(fdepth, single.final_depth)

@@ -30,7 +30,8 @@ torch.set_num_threads(1)
 
 CPU8 = ["cpu"] * 8
 _RAW_FIELDS = ("points", "velocities", "attrs", "final_position",
-               "final_depth", "final_cell", "alive", "window_misses")
+               "final_depth", "final_cell", "alive", "window_misses",
+               "window_clamp_misses")
 
 
 @pytest.fixture(scope="module")

@@ -261,66 +261,85 @@ def test_slim_matches_jax(mesh, raw_fields):
 
 
 def test_window_step_parts_from_full_step_on_an_ascending_column():
-    """A fault of the layer-window path (ROADMAP §3, found by the gate's
-    tracing): where a cell's interpolated raw ztop profile ascends
-    above the window (a vertex column reaching above the surface in the
-    crossing regime's synthetic field), the full column's sequential clamp
-    chains the whole column into a plateau near the surface value, while
-    the window clamps from its own top value.  At float32 the 1e-9 clamp
-    is below the resolution of the window's plateau (|z| ~ 3 m), so a
-    stage's denominator is zero and the window step fails where the full
-    step passes, with no miss flag: the trajectories part.  mops_tpu's
-    window kernel takes the same side on this lane (its step too is 5/6 of
-    its full-column step, with no miss: tests/window_fault_mops_tpu.py), so
-    the port follows its reference here.  This pins the behaviour as it
-    stands, the window step's plain version on such a lane (below the
-    bottom, the fourth stage's profile ascending everywhere) against the
-    full step's; a fix of the window kernels (ROADMAP §3) changes what it
-    checks: the window step equal to the full step, or a miss flagged."""
+    """The layer-window fault on ascending columns (found by the gate's
+    tracing) and its repair.  Where a cell's interpolated raw ztop profile
+    ascends above the window (a vertex column reaching above the surface in
+    the crossing regime's synthetic field), the full column's sequential
+    clamp chains the whole column into a plateau near the surface value,
+    while the window clamps from its own top value.  At float32 the 1e-9
+    clamp is below the resolution of the window's plateau (|z| ~ 3 m), so
+    the window step alone fails a stage where the full step passes, with no
+    edge miss: the trajectories part.  mops_tpu's window kernel takes that
+    side on this lane (tests/window_fault_mops_tpu.py).  The port's window
+    step flags it as a clamp miss (the cell's first rise lies above the
+    window's start), and its repair gives the full step's outputs bit for
+    bit, at float32 and float64, through K3's plain version and through
+    K4's on a pathline between the case's snapshot and itself; the window
+    step alone still loses its fourth stage (about 5/6 of the full
+    velocity).  The gate's tracing then finds no lane off."""
     from mops_tpu_torch.interp import wachspress_weights
-    from mops_tpu_torch.step import window_starts
+    from mops_tpu_torch.step import (cell_rise, start_layer, window_cols,
+                                     window_starts, window_streamline_step)
     mesh, sol, seeds, cells = mtt.bench.build_case(
         3000, 60, 2048, device="cpu", **mtt.bench.CROSSING)
     depths = mtt.seeding.linear_depth_profile(2048, 10, 2500)
     cfg = mtt.TrajectorySettings(delta_t=120, simulation_duration=2400,
                                  record_t=2400, particle_depths=depths)
-    st, sols = advect.prepare(mesh, sol, None, cfg, torch.float32, "cpu",
-                              use_window=True)
-    p = advect.start_particles(st, sols, seeds, cells, depths,
-                               cfg.n_records)
-    j, L = 644, st.n_layers
-    pos, dn = p.pos[j:j + 1], (-p.depth[j:j + 1]).to(torch.float32)
-    vids, nv, _ = advect._gather_cell_vertices(st.mesh, p.cell[j:j + 1])
-    full = sk.fused_streamline_step_plain(pos, dn, nv, vids, st.table, L,
-                                          st.dt)
-    s = window_starts(p.layer[j:j + 1], L, st.n_window).to(torch.int32)
-    win = sk.fused_window_streamline_step_plain(
-        pos, dn, nv, vids, s.contiguous(), st.table, L, st.n_window, st.dt)
-    rows = st.table[vids.long()]
-    p4 = pos + full[1] * st.dt
-    z4 = torch.einsum("nk,nkl->nl", wachspress_weights(
-        p4, rows[..., :3], nv), rows[..., 3:3 + L])
-    assert bool((z4[0, 1:] > z4[0, :-1]).all())    # ascends everywhere
-    assert int(p.layer[j]) == L - 1                 # below the bottom
-    assert bool(full[3][0]) and not bool(win[3][0]) and not bool(win[5][0])
-    # the window step lost its fourth stage: about 5/6 of the full
-    # velocity (the other stages' velocities differ by < 1e-3 of it)
-    torch.testing.assert_close(win[1], full[1] * 5 / 6, rtol=1e-3, atol=0)
-    # at float64 the clamp is resolved at the plateau and the steps agree
-    st64, sols64 = advect.prepare(mesh, sol, None, cfg, torch.float64, "cpu",
+    j = 644
+    for real in (torch.float32, torch.float64):
+        st, sols = advect.prepare(mesh, sol, None, cfg, real, "cpu",
                                   use_window=True)
-    pos64, dn64 = pos.double(), dn.double()
-    full64 = sk.fused_streamline_step_plain(pos64, dn64, nv, vids,
-                                            st64.table, L, st.dt)
-    win64 = sk.fused_window_streamline_step_plain(
-        pos64, dn64, nv, vids, s.contiguous(), st64.table, L, st.n_window,
-        st.dt)
-    assert bool(full64[3][0]) and bool(win64[3][0])
-    torch.testing.assert_close(win64[0], full64[0], rtol=0, atol=1e-6)
-    # the gate's tracing finds it: one lane off that parted in its cell
-    # from identical states (the window step itself differed)
+        p = advect.start_particles(st, sols, seeds, cells, depths,
+                                   cfg.n_records)
+        L = st.n_layers
+        pos, dn = p.pos[j:j + 1], (-p.depth[j:j + 1]).to(real)
+        vids, nv, _ = advect._gather_cell_vertices(st.mesh, p.cell[j:j + 1])
+        s = window_starts(p.layer[j:j + 1], L, st.n_window).contiguous()
+        assert int(p.layer[j]) == L - 1 and int(s[0]) > 0  # below the bottom
+        assert int(cell_rise(st.rise, vids, nv)[0]) <= int(s[0])
+        full = sk.fused_streamline_step_plain(pos, dn, nv, vids, st.table, L,
+                                              st.dt)
+        win = sk.fused_window_streamline_step_plain(
+            pos, dn, nv, vids, s, st.table, st.rise, L, st.n_window, st.dt)
+        assert bool(full[3][0]) and bool(win[5][0]) and bool(win[6][0])
+        for a, b in zip(win[:4], full):
+            assert torch.equal(a, b)
+        # K4 on a pathline between the snapshot and itself
+        tab2 = sk.pack_vertex_table(st.mesh.vertex_xyz, sols[0].vertex_ztop,
+                                    sols[0].vertex_velocity,
+                                    sols[0].vertex_vert_velocity)
+        alphas = advect.stage_alphas(0.5, st.dt, cfg.simulation_duration,
+                                     real)
+        fullp = sk.fused_pathline_step_plain(pos, dn, nv, vids, st.table,
+                                             tab2, L, st.dt, alphas)
+        vpos, cols = sk._split_rows(st.table, vids, L, 0)
+        sp = window_starts(start_layer(cols[0], pos, dn, nv, vpos, True), L,
+                           st.n_window)
+        winp = sk.fused_window_pathline_step_plain(
+            pos, dn, nv, vids, sp.contiguous(), st.table, tab2, st.rise,
+            sk.table_rise(tab2, L), L, st.n_window, st.dt, alphas)
+        assert bool(winp[5][0]) and bool(winp[6][0])
+        for a, b in zip(winp[:4], fullp[:4]):
+            assert torch.equal(a, b)
+        if real == torch.float32:
+            # the window step alone (the parent's, and mops_tpu's window
+            # kernel's): its fourth stage's profile ascends everywhere and
+            # the stage fails, so it keeps about 5/6 of the full velocity
+            alone = window_streamline_step(
+                tuple(window_cols(c, s, st.n_window) for c in cols),
+                (cols[0][..., 0], cols[0][..., -1]), s, L, pos, dn, nv,
+                vpos, st.dt, False, cell_rise(st.rise, vids, nv))
+            rows = st.table[vids.long()]
+            p4 = pos + full[1] * st.dt
+            z4 = torch.einsum("nk,nkl->nl", wachspress_weights(
+                p4, rows[..., :3], nv), rows[..., 3:3 + L])
+            assert bool((z4[0, 1:] > z4[0, :-1]).all())
+            assert not bool(alone[3][0])
+            torch.testing.assert_close(alone[1], full[1] * 5 / 6, rtol=1e-3,
+                                       atol=0)
+    # the gate's tracing: no lane off, none parted from identical states
     g = mtt.bench.gate(mesh, sol, seeds, cells, dataclasses.replace(
         cfg, fail_mode=mtt.FailMode.ZERO), device="cpu", use_window=True,
         trace=True)
     assert (g["off"], g["identical_start"], g["off_kinds"]["same_cell"]) \
-        == (1, 1, 1) and g["verified"]
+        == (0, 0, 0) and g["verified"]

@@ -1,7 +1,11 @@
 """Which side mops_tpu's layer-window kernel takes on the ascending-column
 lane of ROADMAP §3 (the window-path fault that
 tests/test_torch_refscale.py::test_window_step_parts_from_full_step_on_an_ascending_column
-pins in the port).
+pins in the port).  The port's window step flags this lane as a clamp miss
+(the cell's first rise lies above the window's start) and repairs it on the
+full column, so its window path lands where its full column does, with one
+miss counted; mops_tpu's window kernel has no such test, flags nothing and
+parts from its full-column step.
 
 Lane 644 of the bench's 3,000-cell L60 crossing-regime case (2,048 seeds,
 depths 10..2,500 m) takes one float32 step of 120 s through mops_tpu's
