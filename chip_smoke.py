@@ -164,6 +164,27 @@ success):
        least bench.GATE_SHARE of the lanes; the repair's device time a step
        under torch.profiler; the edge and clamp misses' shares; the clamp
        probe's run;
+   8e. (run after 8b, once 8a's and 8b's fields are freed) the pathline
+       tutorial's month at L80 on case A's mesh (pathline_month): two
+       snapshots at ocean speeds (phase 2c's omegas and field) with
+       temperature and salinity, preprocessed on the card at f32 and f64,
+       the 400x400 global grid at 10..500 m, RK4 at dt 600 s for 4,320
+       steps, a record every 6 h, f32; first K2's generic instance and K4
+       one step against their plain versions on check_lanes of these
+       160,000 seeds (f32 and f64, RK4 and Euler, 2 attributes, alphas
+       mid-month and near 1), the device memory logged above what was
+       allocated before 8e; then the window path (4,320 K4 launches
+       and 4,320 repairs by the generic masked K2, no other kernel) and the
+       full column (4,320 generic K2 launches), each timed with the counts
+       set to 0 just before it, LAST_RESOLVED's instance "generic" with 2
+       attributes; particle-RK4-steps/s, the edge and clamp misses'
+       shares, peak device memory, finalize_trajectories' seconds; the
+       clamp probe's rerun bit-equal to the timed run; the two paths'
+       final positions within 100 m on at least bench.GATE_SHARE of the
+       lanes, attribute records non-zero on ATTR_NONZERO of the alive
+       lanes, output shapes as phase 2's; bench.gate on 8,192 lanes spread
+       over the grid at f32 and f64 through both paths, attributes
+       included; the repair's device time a step under torch.profiler;
    8c. mops_tpu_torch.scripts.baseline_configs 1-4 at full size (config 5
        is 6e), each JSON line printed, the outputs finite (config 4: 1M
        particles x 720 pathline steps, its final positions read back, no
@@ -181,6 +202,7 @@ rate, the time of the one PyTorch call that computes the same function
 where there is one, and ptxas's registers and spills.
 """
 
+import dataclasses
 import json
 import os
 import re
@@ -569,19 +591,23 @@ def kernel_check(key, name, call, plain, dt, real, smi, row, where,
 
 
 def check_kernels(meshes, sols, lanes, L, smi, record, where,
-                  alpha_sets=None):
-    """Phase 1's kernel checks (and 8a's): K1 and K3 on the "stream"
-    snapshot, K2 and K4 between "front" and "back" with 0 and 2 attributes,
-    float32 and float64, RK4 and Euler, on ``lanes`` (check_lanes) in
-    columns of L layers; ``record(key, real)`` gives the dict to record a
-    kernel's times in (or None); ``alpha_sets`` the pathline alphas by name
-    (default: mid-run and near 1, where the clip engages)."""
+                  alpha_sets=None, streamline=True, attr_counts=(0, 2)):
+    """Phase 1's kernel checks (and 8a's and 8e's): K1 and K3 on the
+    "stream" snapshot (unless not ``streamline``), K2 and K4 between
+    "front" and "back" with each of ``attr_counts`` attributes, float32 and
+    float64, RK4 and Euler, on ``lanes`` (check_lanes) in columns of L
+    layers; ``record(key, real)`` gives the dict to record a kernel's times
+    in (or None), and with ``record`` None nothing is timed;
+    ``alpha_sets`` the pathline alphas by name (default: mid-run and near
+    1, where the clip engages)."""
     import torch
 
     from mops_tpu_torch import advect
     from mops_tpu_torch.kernels import stage_kernel as sk
     f32, f64 = torch.float32, torch.float64
     seeds_chk, cells_chk, depth_chk, shift = lanes
+    timed = record is not None
+    record = record or (lambda key, real: None)
 
     def lane_inputs(real):
         mesh = meshes[real]
@@ -606,37 +632,40 @@ def check_kernels(meshes, sols, lanes, L, smi, record, where,
                       "near 1": (PATH_STEPS - 1) / PATH_STEPS}
     for real, tag in ((f32, "f32"), (f64, "f64")):
         pos, dn, nv, vids = lane_inputs(real)
-        tab = packed(meshes[real], sols["stream", real])
-        rise = sk.table_rise(tab, L)
-        s0, s = starts(pos, dn, nv, vids, tab)
-        for euler in (False, True):
-            name = f"{tag} {'euler' if euler else 'rk4'}"
-            kernel_check("k1", name,
-                         lambda: sk.fused_streamline_step(
-                             pos, dn, nv, vids, tab, L, 120.0, euler=euler),
-                         lambda: sk.fused_streamline_step_plain(
-                             pos, dn, nv, vids, tab, L, 120.0, euler=euler),
-                         120.0, real, smi, record("k1", real), where,
-                         timed_case="euler" if euler else True)
-            kernel_check("k3", name,
-                         lambda: sk.fused_window_streamline_step(
-                             pos, dn, nv, vids, s, tab, rise, L, WINDOW,
-                             120.0, euler=euler),
-                         lambda: sk.fused_window_streamline_step_plain(
-                             pos, dn, nv, vids, s, tab, rise, L, WINDOW,
-                             120.0, euler=euler),
-                         120.0, real, smi, record("k3", real), where,
-                         flags=(3, 4, 5, 6),
-                         timed_case="euler" if euler else True,
-                         timed_calls=(
+        if streamline:
+            tab = packed(meshes[real], sols["stream", real])
+            rise = sk.table_rise(tab, L)
+            s0, s = starts(pos, dn, nv, vids, tab)
+            for euler in (False, True):
+                name = f"{tag} {'euler' if euler else 'rk4'}"
+                timed_case = timed and ("euler" if euler else True)
+                kernel_check("k1", name,
+                             lambda: sk.fused_streamline_step(
+                                 pos, dn, nv, vids, tab, L, 120.0,
+                                 euler=euler),
+                             lambda: sk.fused_streamline_step_plain(
+                                 pos, dn, nv, vids, tab, L, 120.0,
+                                 euler=euler),
+                             120.0, real, smi, record("k1", real), where,
+                             timed_case=timed_case)
+                kernel_check("k3", name,
                              lambda: sk.fused_window_streamline_step(
-                                 pos, dn, nv, vids, s0, tab, rise, L, WINDOW,
+                                 pos, dn, nv, vids, s, tab, rise, L, WINDOW,
                                  120.0, euler=euler),
                              lambda: sk.fused_window_streamline_step_plain(
-                                 pos, dn, nv, vids, s0, tab, rise, L, WINDOW,
-                                 120.0)))
-        del tab, rise
-        for n_attrs in (0, 2):
+                                 pos, dn, nv, vids, s, tab, rise, L, WINDOW,
+                                 120.0, euler=euler),
+                             120.0, real, smi, record("k3", real), where,
+                             flags=(3, 4, 5, 6), timed_case=timed_case,
+                             timed_calls=(
+                                 lambda: sk.fused_window_streamline_step(
+                                     pos, dn, nv, vids, s0, tab, rise, L,
+                                     WINDOW, 120.0, euler=euler),
+                                 lambda: sk.fused_window_streamline_step_plain(
+                                     pos, dn, nv, vids, s0, tab, rise, L,
+                                     WINDOW, 120.0)))
+            del tab, rise
+        for n_attrs in attr_counts:
             tf = packed(meshes[real], sols["front", real], n_attrs)
             tb = packed(meshes[real], sols["back", real], n_attrs)
             rises = sk.table_rise(tf, L), sk.table_rise(tb, L)
@@ -648,8 +677,8 @@ def check_kernels(meshes, sols, lanes, L, smi, record, where,
                     name = (f"{tag} {'euler' if euler else 'rk4'} "
                             f"A={n_attrs} alphas {a_name} "
                             f"{[float(a) for a in alphas]}")
-                    timed_case = n_attrs and a_name == "mid" and (
-                        "euler" if euler else True)
+                    timed_case = timed and n_attrs and a_name == "mid" \
+                        and ("euler" if euler else True)
                     kernel_check("k2", name,
                                  lambda: sk.fused_pathline_step(
                                      pos, dn, nv, vids, tf, tb, L, PATH_DT,
@@ -2153,6 +2182,223 @@ def vtp_counts(path):
     return tuple(map(int, found.groups())) if found else (0, 0)
 
 
+def pathline_month(dev, case, omegas, seeds, n_steps, n_layers, timed, smi,
+                   rows, dtype=None):
+    """Phase 8e: the reference tutorial's pathline (tutorial/pathLine.cpp)
+    on ``case``'s mesh at ``n_layers`` (a bench_refscale.build case with
+    meshes at f32 and f64; its own fields are not used): two snapshots at
+    ``omegas`` (prof_dma.FIELD_KW, temperature and salinity) preprocessed on
+    ``dev`` at f32 and f64, ``seeds`` at 10..500 m, RK4 at dt PATH_DT for
+    ``n_steps`` steps, a record every PATH_RECORD (or one at the end of a
+    shorter run), FailMode.ZERO, in ``dtype`` (default f32).
+
+    First K2's generic instance and K4 one step against their plain
+    versions on check_lanes of these seeds, cells and depths (f32 and f64,
+    RK4 and Euler, two attributes, alphas mid-month and near 1).  Then the
+    window path (the default: K4 and its repair, the generic masked
+    K2) and the full column (K2's generic instance), each timed with every
+    launch count set to 0 just before it; LAST_RESOLVED's instance and
+    attributes; the clamp probe's rerun of the window path; the two paths'
+    final positions within 100 m; attribute records non-zero; the gates
+    (bench.gate at f32 and f64 on REFSCALE_GATE lanes spread evenly over
+    the seeds: the grid's first rows all lie at the pole); the window
+    path's repair time a step under torch.profiler over PROFILE_STEPS.
+    Records K2's and K4's launches, K4's repairs and the repair's time in
+    ``rows[key]["L80"]``.  Returns (summary, {"window": RawTrajectories,
+    "full column": RawTrajectories})."""
+    import numpy as np
+    import torch
+
+    import mops_tpu_torch as mtt
+    from mops_tpu_torch import advect, bench, prof_dma
+    from mops_tpu_torch.kernels import stage_kernel as sk
+    f32, f64 = torch.float32, torch.float64
+    real = dtype or f32
+    n = len(seeds)
+    L = n_layers
+    meshes = case.meshes
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) / 1e9
+    fronts, backs = {}, {}
+    for om, dst, name in ((omegas[0], fronts, "front"),
+                          (omegas[1], backs, "back")):
+        raw = timed(f"8e synth {name} fields (omega {om:g})",
+                    lambda: mtt.synth.solid_body_fields(
+                        case.mesh, n_layers=L, omega=om,
+                        **prof_dma.FIELD_KW))
+        raw = {k: np.asarray(v, np.float32) for k, v in raw.items()}
+        for r, tag in ((f32, "f32"), (f64, "f64")):
+            dst[r] = timed(f"8e preprocess {name} {tag} (card)",
+                           lambda: mtt.preprocess(meshes[r], raw, dtype=r,
+                                                  device=dev))
+        del raw
+    peak_fields = torch.cuda.max_memory_allocated(dev) / 1e9
+    cells = timed("8e cell search", lambda: mtt.CellSearch(case.mesh).query(
+        seeds))
+    depths = mtt.seeding.linear_depth_profile(n, 10, 500)
+    cfg = mtt.TrajectorySettings(
+        delta_t=PATH_DT, simulation_duration=PATH_DT * n_steps,
+        record_t=min(PATH_RECORD, PATH_DT * n_steps), particle_depths=depths,
+        fail_mode=mtt.FailMode.ZERO)
+    log(f"  {n} seeds at 10..500 m, {int((cells >= 0).sum())} in a cell; "
+        f"{n_steps} steps of {PATH_DT} s, {cfg.n_records} records; device "
+        f"memory peak {peak_fields:.3f} GB with the fields at f32 and f64, "
+        f"{peak_fields - base:.3f} GB above the {base:.3f} GB allocated "
+        "before 8e")
+    out = {"base_gb": base, "peak_gb_fields": peak_fields}
+    # K2's generic instance and K4 (its repair the generic masked K2) one
+    # step against their plain versions on these lanes, two attributes
+    sols = {(name, r): d[r] for name, d in (("front", fronts),
+                                            ("back", backs))
+            for r in (f32, f64)}
+    torch.cuda.reset_peak_memory_stats(dev)
+    timed("8e kernel checks", lambda: check_kernels(
+        meshes, sols, check_lanes(seeds, cells, depths,
+                                  case.mesh.cells_on_cell.numpy()),
+        L, smi, None, "8e's inputs", streamline=False, attr_counts=(2,)))
+    out["peak_gb_checks"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"  device memory peak over the kernel checks "
+        f"{out['peak_gb_checks']:.3f} GB")
+    del sols
+    raws = {}
+    for windowed, key, label in ((None, "k4", "window"),
+                                 (False, "k2", "full column")):
+        sk.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t = time.perf_counter()
+        raw = mtt.run_advection(meshes[real], fronts[real], seeds, cells, cfg,
+                                back=backs[real], dtype=real, device=dev,
+                                use_window=windowed)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        counts = sk.launch_counts()
+        peak = torch.cuda.max_memory_allocated(dev) / 1e9
+        path = dict(advect.LAST_RESOLVED)
+        want = {"k4": n_steps, "k4 repair": n_steps} if key == "k4" \
+            else {"k2": n_steps}
+        rate = n * n_steps / seconds
+        rec = {"particle_rk4_steps_per_s": rate, "seconds": seconds,
+               "peak_gb": peak, "launches": counts, "path": path}
+        if key == "k4":
+            rec["misses"] = miss_shares(raw, n_steps)
+        log(f"  8e {label}: {rate:.6e} particle-RK4-steps/s ({seconds:.3f} "
+            f"s), launches {counts}, instance {path['instance']}, "
+            f"{path['n_attrs']} attributes, window {path['window']}; "
+            + (miss_line(rec["misses"]) + "; " if key == "k4" else "")
+            + f"peak device memory {peak:.3f} GB, {peak - base:.3f} GB "
+            f"above the base ({smi})")
+        if any(counts[k] != want.get(k, 0) for k in counts):
+            fail(f"8e {label}: launch counts {counts}, expected {want}")
+        if (path["instance"], path["n_attrs"], path["window"]) \
+                != ("generic", 2, key == "k4"):
+            fail(f"8e {label}: path {path}")
+        rows[key]["L80"]["launches"] = counts[key]
+        if key == "k4":
+            rows["k2"]["L80"]["repair_launches"] = counts["k4 repair"]
+        t = time.perf_counter()
+        lines = mtt.finalize_trajectories(
+            seeds, raw.points.cpu().numpy(), raw.velocities.cpu().numpy(),
+            cfg, attrs=raw.attrs.cpu().numpy(), with_attrs=True)
+        rec["finalize_s"] = time.perf_counter() - t
+        if tuple(raw.points.shape) != (n, cfg.n_records, 3) \
+                or raw.attrs is None or raw.attrs.shape != raw.points.shape \
+                or len(lines) != n or lines[0].attrs is None:
+            fail(f"8e {label}: output shapes")
+        del lines
+        final = raw.final_position.double()
+        alive = raw.alive & torch.isfinite(final).all(dim=1)
+        att = raw.attrs[alive][:, :, :2]
+        nonzero = float((att != 0).all(dim=2).double().mean())
+        disp = (final - torch.as_tensor(seeds, device=final.device)
+                .double()).norm(dim=1)[alive]
+        log(f"  finalize_trajectories {rec['finalize_s']:.3f} s; alive and "
+            f"finite {int(alive.sum())}/{n}; median displacement "
+            f"{float(disp.median()):.1f} m; attribute records finite "
+            f"{bool(torch.isfinite(att).all())}, non-zero on alive lanes "
+            f"{100 * nonzero:.3f}%")
+        if not bool(torch.isfinite(att).all()) or nonzero < ATTR_NONZERO:
+            fail(f"8e {label}: attributes are not finite and non-zero")
+        if not float(disp.median()) > 0.0:
+            fail(f"8e {label}: particles did not move")
+        rec["attr_nonzero"] = nonzero
+        out[f"8e {label}"] = rec
+        raws[label] = raw
+        del att, final
+    err = (raws["window"].final_position.double()
+           - raws["full column"].final_position.double()).norm(dim=1)
+    share = float((err <= 100.0).double().mean())
+    log(f"  window vs full column: {100 * share:.3f}% of final positions "
+        f"within 100 m, median difference {float(err.median()):.3e} m")
+    if share < bench.GATE_SHARE[f32]:
+        fail("8e: the window path left the full-column path")
+    out["window_vs_full_within_100m"] = share
+    with ClampProbe() as probe:
+        again = timed("8e window path, clamp probe", lambda: mtt.run_advection(
+            meshes[real], fronts[real], seeds, cells, cfg, back=backs[real],
+            dtype=real, device=dev))
+    same = torch.equal(again.final_position, raws["window"].final_position)
+    clamp = out["8e window"]["misses"]["clamp"]
+    log(f"  the clamp probe's run: {probe.flagged} lane-steps flagged by the "
+        f"clamp test alone (the timed run counted {clamp}), on "
+        f"{probe.differed} of them the window step alone would have parted "
+        f"from the full step; final positions bit-equal to the timed run's: "
+        f"{same}")
+    if not same or probe.flagged != clamp:
+        fail("8e: the clamp probe's run")
+    out["clamp probe"] = {"flagged": probe.flagged, "parted": probe.differed}
+    del again
+    # the gates on lanes spread over the grid
+    idx = np.linspace(0, n - 1, min(REFSCALE_GATE, n)).astype(np.int64)
+    gcfg = dataclasses.replace(cfg, particle_depths=depths[idx])
+    torch.cuda.reset_peak_memory_stats(dev)
+    for r, tag in ((f32, "f32"), (f64, "f64")):
+        for windowed, label in ((None, "window"), (False, "full column")):
+            g = bench.gate(meshes[r], fronts[r], seeds[idx], cells[idx], gcfg,
+                           back=backs[r], dtype=r, device=dev,
+                           use_window=windowed)
+            log(f"  8e gate {tag} {label}: "
+                + bench.gate_line(g).lstrip("# ") + f" ({smi})")
+            if not g["verified"] or g["attr_share"] is None \
+                    or g["path"]["instance"] != "generic":
+                fail(f"8e gate {tag} {label}")
+            out[f"gate {tag} {label}"] = {
+                k: g[k] for k in ("share", "attr_share", "off", "tie_flips",
+                                  "verified")}
+    out["peak_gb_gates"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    log(f"  device memory peak over the gates {out['peak_gb_gates']:.3f} GB")
+    # the window path's repair (the generic masked K2), its device time a
+    # step apart from K4's under torch.profiler after a warm-up
+    prof_cfg = dataclasses.replace(
+        cfg, simulation_duration=PATH_DT * PROFILE_STEPS,
+        record_t=PATH_DT * 3)
+    for r, tag, ctype in ((f32, "f32", "float"), (f64, "f64", "double")):
+        def run():
+            return mtt.run_advection(meshes[r], fronts[r], seeds, cells,
+                                     prof_cfg, back=backs[r], dtype=r,
+                                     device=dev)
+        shares = miss_shares(run(), PROFILE_STEPS)
+        busy, window, per_name, _ = device_breakdown(run)
+        repair = f"pathline_step_kernel<{ctype}, {sk.L_MAX}, true>"
+        r_ms = sum(ms for nm, ms in per_name.items() if repair in nm)
+        k_ms = sum(ms for nm, ms in per_name.items()
+                   if "window_pathline_kernel" in nm)
+        log(f"  {tag} window path at L{L} under torch.profiler: device busy "
+            f"{busy:.3f} ms of a {window:.3f} ms window, idle share "
+            f"{100 * (1 - busy / window):.2f}%, K4 {k_ms:.3f} ms, masked "
+            f"repair {repair} {r_ms:.3f} ms, "
+            f"{1e3 * r_ms / PROFILE_STEPS:.2f} us a step; "
+            f"{miss_line(shares)} ({smi})")
+        if r_ms <= 0.0 or k_ms <= 0.0:
+            fail(f"8e profile {tag}: no K4 or no generic repair on the device")
+        rows["k2"]["L80"].setdefault("repair_ms_per_step", {})[tag] = \
+            r_ms / PROFILE_STEPS
+        out[f"profile {tag}"] = {"busy_ms": busy, "window_ms": window,
+                                 "k4_ms": k_ms, "repair_ms": r_ms,
+                                 "misses": shares}
+    return out, raws
+
+
 def reference_scale(dev, rows, ptxas, timed, times, smi):
     """Phase 8: the 80-layer path, the generic (L > 64) instances of K1 and
     K2 on case A's mesh, then the BASELINE configs and the tutorials.
@@ -2162,7 +2408,7 @@ def reference_scale(dev, rows, ptxas, timed, times, smi):
     import torch
 
     import mops_tpu_torch as mtt
-    from mops_tpu_torch import bench
+    from mops_tpu_torch import bench, prof_dma
     from mops_tpu_torch.kernels import stage_kernel as sk
     from mops_tpu_torch.scripts import baseline_configs as bc
     from mops_tpu_torch.scripts import bench_refscale as rs
@@ -2341,9 +2587,22 @@ def reference_scale(dev, rows, ptxas, timed, times, smi):
         rows["k1"]["L80"].setdefault("repair_ms_per_step", {})[tag] = \
             r_ms / PROFILE_STEPS
         out[f"8b profile {tag} misses"] = shares
-    for key in ("k2", "k4"):
-        rows[key]["L80"]["launches"] = 0        # kernel checks only
-    del case, meshes, sols, finals
+    del finals
+
+    # ---- 8e: the pathline month at L80 -------------------------------------
+    log(f"[phase 8e] the pathline tutorial's month at L{L} on case A's mesh: "
+        f"{PATH_STEPS} steps at dt {PATH_DT} s, the window path and the full "
+        f"column, f32; gates on {REFSCALE_GATE} lanes at f32 and f64")
+    sols.clear()                 # 8a's and 8b's crossing-regime fields
+    case.sols.clear()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    out["8e"], month = pathline_month(
+        dev, case, (prof_dma.PATH_OMEGA, prof_dma.BACK_OMEGA),
+        prof_dma.slice_seeds(), PATH_STEPS, L, timed, smi, rows)
+    times["8e pathline month"] = time.perf_counter() - t
+    del case, meshes, month
+    torch.cuda.empty_cache()
 
     # ---- 8c: the BASELINE configs -----------------------------------------
     log("[phase 8c] baseline_configs 1-4 at full size (config 5 is 6e)")

@@ -64,8 +64,7 @@ class MOPSApp:
         cards raises."""
         config.precision(precision)          # raises on an unknown mode
         self.device = resolve_device(device)
-        self.devices = device_list(devices, self.device.type) \
-            if int(devices) > 1 else [self.device]
+        self.devices = self._devices_for(devices)
         self.precision = precision
         name = torch.cuda.get_device_name(self.device) \
             if self.device.type == "cuda" else "cpu"
@@ -74,6 +73,13 @@ class MOPSApp:
               f"x{len(self.devices)}")
         print(f"Precision mode  : {precision}")
         self.state = _State.UNINITIALIZED
+
+    def _devices_for(self, n: int) -> list:
+        """The devices of a run split over ``n``: cards 0..n-1 (or n CPU
+        shards) for n > 1, raising where the machine has fewer; else the
+        app's device."""
+        return device_list(n, self.device.type) if int(n) > 1 \
+            else [self.device]
 
     def begin(self) -> None:
         self.state = _State.CONFIGURING
@@ -127,36 +133,46 @@ class MOPSApp:
             return seeding.generate_sample_points_at_centers(self.mesh)
         return seeding.generate_sample_points(cfg)
 
-    def _advect(self, sample_points, cfg, back=None):
+    def _advect(self, sample_points, cfg, back=None,
+                devices: Optional[int] = None):
         """One trajectory run from the field's tables (moved to the app's
-        device once), its particles split over the app's devices."""
+        device once), its particles split over the app's devices, or for
+        this run only over ``devices`` of them (as ``init``'s: more than
+        the machine's cards raises)."""
+        run_devices = self.devices if devices is None \
+            else self._devices_for(devices)
         cells = self.field.calc_in_which_cells(sample_points)
         mesh, front = self.field.device_tables()
         return advect.run_advection(mesh, front, sample_points, cells, cfg,
                                     back=back, dtype=self._dtype(),
-                                    devices=self.devices)
+                                    devices=run_devices)
 
     def run_streamline(self, cfg: TrajectorySettings,
-                       sample_points: np.ndarray) -> List[TrajectoryLine]:
+                       sample_points: np.ndarray,
+                       devices: Optional[int] = None) -> List[TrajectoryLine]:
+        """Streamline; ``devices`` (None: init's) splits this run's
+        particles over that many devices."""
         self._require_ready()
         with timer("GPUKernel::StreamLine", "GPUKernel"):
-            raw = self._advect(sample_points, cfg)
+            raw = self._advect(sample_points, cfg, devices=devices)
             lines = trajectory.finalize_trajectories(
                 sample_points, raw.points.cpu().numpy(),
                 raw.velocities.cpu().numpy(), cfg)
         return lines
 
     def run_pathline(self, cfg: TrajectorySettings,
-                     sample_points: np.ndarray) -> List[TrajectoryLine]:
+                     sample_points: np.ndarray,
+                     devices: Optional[int] = None) -> List[TrajectoryLine]:
         """Pathline; like the reference, advances ``sample_points`` in place
         to each line's lastPoint for month-pair chaining (reference
-        src/Core/MOPSApp.cpp:287-291)."""
+        src/Core/MOPSApp.cpp:287-291).  ``devices`` as run_streamline's."""
         self._require_ready()
         if self.field.back is None:
             raise RuntimeError("pathline needs two active solutions "
                                "(reference src/Core/MOPSApp.cpp:266-271)")
         with timer("GPUKernel::PathLine", "GPUKernel"):
-            raw = self._advect(sample_points, cfg, back=self.field.back)
+            raw = self._advect(sample_points, cfg, back=self.field.back,
+                               devices=devices)
             lines = trajectory.finalize_trajectories(
                 sample_points, raw.points.cpu().numpy(),
                 raw.velocities.cpu().numpy(), cfg,

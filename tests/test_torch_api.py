@@ -233,6 +233,49 @@ def test_more_than_one_device_raises(monkeypatch):
         mtt.MOPS_Init("cuda", devices=4)
 
 
+def test_per_call_devices(apps, mesh, raw_fields):
+    """run_streamline/run_pathline(..., devices=2) on an app initialised
+    with one device split that run over two CPU shards: bit-equal to the
+    same calls on an app initialised with devices=2 and to the
+    single-device run, the app's own devices unchanged; mops_tpu's MOPSApp
+    takes the same keyword (over two virtual CPU devices)."""
+    ref, one = apps
+    two = papi.MOPSApp()
+    two.init("cpu", precision="fp64", devices=2)
+    two.begin()
+    two.add_grid(mesh_from_jax(mesh))
+    two.add_solution(1, {k: np.asarray(v) for k, v in raw_fields.items()})
+    two.add_solution(2, _raw2(raw_fields))
+    two.end()
+    assert one.devices == [torch.device("cpu")] and len(two.devices) == 2
+    seeds = _seeds(one)
+    kw = dict(delta_t=600, simulation_duration=600 * 8, record_t=1200,
+              fail_mode=mtt.FailMode.ZERO)
+    cfg = mtt.TrajectorySettings(depth=100.0, **kw)
+    pcfg = mtt.TrajectorySettings(
+        particle_depths=np.linspace(10.0, 800.0, len(seeds)), **kw)
+    jkw = dict(kw, fail_mode=mt.FailMode.ZERO)
+    for app in (ref, one, two):
+        app.active_attribute(1, 2)
+    for run, c, jc in (
+            ("run_streamline", cfg, mt.TrajectorySettings(depth=100.0, **jkw)),
+            ("run_pathline", pcfg, mt.TrajectorySettings(
+                particle_depths=pcfg.particle_depths, **jkw))):
+        single = getattr(one, run)(c, seeds.copy())
+        split = getattr(one, run)(c, seeds.copy(), devices=2)
+        init2 = getattr(two, run)(c, seeds.copy())
+        for lines in (split, init2):
+            assert len(lines) == len(single)
+            for a, b in zip(lines, single):
+                for f in ("points", "velocity", "last_point", "attrs"):
+                    np.testing.assert_array_equal(getattr(a, f),
+                                                  getattr(b, f), err_msg=f)
+        assert one.devices == [torch.device("cpu")]
+        _assert_lines_close(split, getattr(ref, run)(jc, seeds.copy(),
+                                                     devices=2),
+                            attrs=run == "run_pathline")
+
+
 @pytest.mark.parametrize("entry", ["MOPS_Init", "Field", "pymops", "cli"])
 def test_entry_points_raise_without_a_card(entry, mesh, sol, tmp_path):
     """The card is the default; without one every entry point raises

@@ -24,7 +24,7 @@ import torch
 
 import mops_tpu as mt
 import mops_tpu_torch as mtt
-from mops_tpu_torch import advect
+from mops_tpu_torch import advect, prof_dma
 from mops_tpu_torch.from_jax import mesh_from_jax
 from mops_tpu_torch.kernels import stage_kernel as sk
 from mops_tpu_torch.scripts import bench_refscale as rs
@@ -142,6 +142,100 @@ def test_case_a_reduced_matches_jax():
                                np.asarray(ref.final_position), rtol=0,
                                atol=1e-6)
     assert float(np.abs(raw.final_position.numpy() - seeds).max()) > 1e3
+
+
+def _counting(fn, repair):
+    """A step wrapper that counts its calls as the CUDA wrapper counts its
+    launches (the window ones with their repair) and runs ``fn``."""
+    def wrapper(*args, **kw):
+        wrapper.launches += 1
+        wrapper.repair_launches += int(repair)
+        return fn(*args, **kw)
+    wrapper.launches = wrapper.repair_launches = 0
+    return wrapper
+
+
+def test_phase_8e_rehearsal_matches_jax(monkeypatch):
+    """chip_smoke.py phase 8e (pathline_month) on the CPU at 2,000 cells x
+    L80, 256 seeds at 10..500 m, 6 steps, two attributes, float64, with the
+    card's calls stubbed, the step wrappers counting and the window on for
+    use_window=None (as on the card); 8e's one-step kernel checks run
+    and hold (here each wrapper is its plain version); both paths resolve
+    K2's generic instance with two attributes, the counts read 6 K4 and 6
+    repairs on the window path and 6 K2 on the full column, the two paths'
+    final positions agree within 1e-6 m, and both equal
+    mops_tpu.run_advection(..., use_pallas=False) at x64 on the same inputs
+    (positions 1e-6 m, velocities 1e-10 m/s, attribute records 1e-8)."""
+    import chip_smoke as cs
+    n_cells, n_steps, f32, f64 = 2000, 6, torch.float32, torch.float64
+    for name in ("synchronize", "reset_peak_memory_stats"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: None)
+    for name in ("memory_allocated", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+
+    def fail(msg):
+        raise AssertionError(msg)
+    monkeypatch.setattr(cs, "fail", fail)
+    names = {"pathline_step_kernel<float, 128, true>": 1.0,
+             "pathline_step_kernel<double, 128, true>": 1.0,
+             "window_pathline_kernel": 1.0}
+    monkeypatch.setattr(cs, "device_breakdown",
+                        lambda run: (3.0, 4.0, names, (0.0, 0.0, "")))
+    for name, repair in (("fused_pathline_step", False),
+                         ("fused_window_pathline_step", True)):
+        wrapper = _counting(getattr(sk, name), repair)
+        monkeypatch.setattr(sk, name, wrapper)
+        monkeypatch.setattr(advect, name, wrapper)
+    resolve = advect.resolve_window
+    monkeypatch.setattr(
+        advect, "resolve_window", lambda use_kernel, use_window, *a:
+        resolve(use_kernel, True if use_window is None else use_window, *a))
+    case = rs.build(n_cells, L80, 16, device="cpu", dtypes=(f32, f64))
+    seeds = mtt.seeding.generate_sample_points(mtt.SamplingSettings(
+        sample_range=(17, 17), lat_range=(-80, 80), lon_range=(-180, 180)))
+    assert len(seeds) == 256
+    omegas = (prof_dma.PATH_OMEGA, prof_dma.BACK_OMEGA)
+    rows = {k: {"L80": {}} for k in ("k1", "k2", "k3", "k4")}
+    out, raws = cs.pathline_month(torch.device("cpu"), case, omegas, seeds,
+                                  n_steps, L80, lambda name, fn: fn(), "cpu",
+                                  rows, dtype=f64)
+    assert rows["k4"]["L80"]["launches"] == n_steps
+    assert rows["k2"]["L80"]["repair_launches"] == n_steps
+    assert rows["k2"]["L80"]["launches"] == n_steps
+    for label, window in (("window", True), ("full column", False)):
+        path = out[f"8e {label}"]["path"]
+        assert (path["instance"], path["n_attrs"], path["window"],
+                path["dtype"]) == ("generic", 2, window, "float64")
+    for tag in ("f32", "f64"):
+        for label in ("window", "full column"):
+            assert out[f"gate {tag} {label}"]["verified"]
+    c = lambda t: t.numpy()
+    np.testing.assert_allclose(c(raws["window"].final_position),
+                               c(raws["full column"].final_position),
+                               rtol=0, atol=1e-6)
+    # mops_tpu on the same inputs at x64
+    mesh = mt.synth.build_voronoi_mesh(n_cells, jitter=0.05, seed=0,
+                                       n_layers=L80)
+    front, back = (mt.preprocess(mesh, {
+        k: np.asarray(v, np.float32).astype(np.float64) for k, v in
+        mt.synth.solid_body_fields(mesh, n_layers=L80, omega=om,
+                                   **prof_dma.FIELD_KW).items()})
+        for om in omegas)
+    depths = mtt.seeding.linear_depth_profile(len(seeds), 10, 500)
+    cfg = mt.TrajectorySettings(
+        delta_t=cs.PATH_DT, simulation_duration=cs.PATH_DT * n_steps,
+        record_t=cs.PATH_DT * n_steps, particle_depths=depths,
+        fail_mode=mt.FailMode.ZERO)
+    ref = mt.run_advection(mesh, front, seeds, mt.CellSearch(mesh).query(
+        seeds), cfg, back=back, use_pallas=False)
+    for raw in raws.values():
+        for name, tol in (("points", 1e-6), ("final_position", 1e-6),
+                          ("velocities", 1e-10), ("attrs", 1e-8)):
+            np.testing.assert_allclose(c(getattr(raw, name)),
+                                       np.asarray(getattr(ref, name)),
+                                       rtol=0, atol=tol, err_msg=name)
+        np.testing.assert_array_equal(c(raw.alive), np.asarray(ref.alive))
+    assert float(np.abs(c(raws["window"].attrs)).max()) > 0
 
 
 def test_step_cost_counts_distinct_rows(slice80):
