@@ -51,6 +51,7 @@ from .settings import CalcDirection, CalcMethod, FailMode, TrajectorySettings
 from .solution import SolutionFields
 from .step import (_clamp_profile, _layer_search_binary,
                    _layer_search_linear, _norm, _where0, window_starts)
+from .utils.timer import Phases, TimerManager, timer
 
 # Layers a window holds (mops_tpu's MOPS_WINDOW_W default).
 WINDOW_LAYERS = 8
@@ -69,6 +70,10 @@ LAST_RESOLVED: dict = {}
 
 # Particles step_cost takes at a time: bounds its (chunk, K, L) gathers.
 _COST_CHUNK = 1 << 18
+
+# The phases of a step, in order (advance; spans of run_advection's detail).
+PHASES = ("advect.relocate", "advect.gather", "advect.step", "advect.update",
+          "advect.record")
 
 
 # ---------------------------------------------------------------------------
@@ -441,11 +446,12 @@ def new_particles(st: Stepper, pos, cell, depth, n_records: int,
                      clamp_misses=clamp_misses)
 
 
-def advance(st: Stepper, p: Particles, i: int) -> None:
+def advance(st: Stepper, p: Particles, i: int,
+            ph: Optional[Phases] = None) -> None:
     """Step ``i`` of the run for every particle of ``p``, in place:
     relocate (not on step 0), gather the cell's vertex ids, one fused step,
-    the depth/radius update and the records.  Launches work only: nothing
-    here waits on the device."""
+    the depth/radius update and the records (PHASES; ``ph`` marks the end
+    of each).  Launches work only: nothing here waits on the device."""
     real = p.pos.dtype
     dt = st.dt
     pos, depth, cell, alive = p.pos, p.depth, p.cell, p.alive
@@ -453,11 +459,16 @@ def advance(st: Stepper, p: Particles, i: int) -> None:
     if not st.is_first[i]:
         new_cell = _relocate_packed(st.mesh, st.reloc_xyz, pos, cell)
         cell = torch.where(alive, new_cell, cell)
+    if ph is not None:
+        ph.mark()
     vids, nv, vids_ok = _gather_cell_vertices(st.mesh, cell)
     alphas = stage_alphas(st.alphas[i], dt, st.duration, real) \
         if st.pathline else None
+    s = window_starts(p.layer, st.n_layers, st.n_window) if st.n_window \
+        else None
+    if ph is not None:
+        ph.mark()
     if st.n_window:
-        s = window_starts(p.layer, st.n_layers, st.n_window)
         if st.pathline:
             np_k, hv_k, wv_k, ok_k, layer_k, miss, clamp, at_k = \
                 fused_window_pathline_step(
@@ -470,10 +481,6 @@ def advance(st: Stepper, p: Particles, i: int) -> None:
                     pos, depth_neg, nv, vids, s, st.table, st.rise,
                     st.n_layers, st.n_window, dt, euler=st.euler)
             at_k = None
-        p.layer = torch.where(alive, layer_k, p.layer)
-        counted = alive & vids_ok
-        p.misses += (miss & counted).to(torch.int32)
-        p.clamp_misses += (clamp & counted).to(torch.int32)
     elif st.pathline:
         pstep = fused_pathline_step if st.use_kernel else functools.partial(
             fused_pathline_step_plain, exact_clamp=st.exact_clamp)
@@ -486,6 +493,13 @@ def advance(st: Stepper, p: Particles, i: int) -> None:
         np_k, hv_k, wv_k, ok_k = step(pos, depth_neg, nv, vids, st.table,
                                       st.n_layers, dt, euler=st.euler)
         at_k = None
+    if ph is not None:
+        ph.mark()
+    if st.n_window:
+        p.layer = torch.where(alive, layer_k, p.layer)
+        counted = alive & vids_ok
+        p.misses += (miss & counted).to(torch.int32)
+        p.clamp_misses += (clamp & counted).to(torch.int32)
     # invalid vertex ids (reference R_VLA_FAIL) are checked outside the
     # step: zero the velocities and attributes and keep the position
     step_ok = ok_k & vids_ok
@@ -508,6 +522,8 @@ def advance(st: Stepper, p: Particles, i: int) -> None:
     p.pos = pos = torch.where(write_ok[:, None], new_pos, pos)
     p.depth = torch.where(write_ok, new_depth.to(depth.dtype), depth)
     p.cell, p.alive = cell, write_ok
+    if ph is not None:
+        ph.mark()
 
     # first-step velocity/attr into slot 0 (TBB kernel :988-991); the
     # attribute buffer stays zero without attributes
@@ -525,6 +541,8 @@ def advance(st: Stepper, p: Particles, i: int) -> None:
             buf[:, s] = torch.where(upd, val, buf[:, s])
         if p.rec_ids is not None:
             p.rec_ids[:, s] = torch.where(write_ok, p.pid, p.rec_ids[:, s])
+    if ph is not None:
+        ph.mark()
 
 
 def resolve_window(use_kernel: bool, use_window: Optional[bool],
@@ -666,6 +684,15 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
     the whole on one rank).
 
     Every call records the path it took in LAST_RESOLVED.
+
+    Spans (utils.timer): advect.prepare (the tables packed on each
+    device) and advect.loop (the particles' start and the step loop, with
+    the first device's stream time: GPUKernel).  With detail on (a
+    profiler recording at the request's start) and one device, the loop
+    also keeps PHASES, each a span of its host time and stream time summed
+    over the steps, and counts advect.steps and, on the window path,
+    advect.window_misses and advect.window_clamp_misses (the per-particle
+    counts, summed when read).
     """
     devices = [resolve_device(d) for d in (devices or [device])]
     real = mesh.dtype if dtype is None else dtype
@@ -684,10 +711,13 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
         seeds, cells, depths = seeds[a:b], cells[a:b], depths[a:b]
     n = len(seeds)
 
+    mgr = TimerManager.instance()
+    detail = mgr.detail()
     # mesh + solution tables on each distinct device in the particle dtype
-    steppers = {dev: prepare(mesh, front, back, settings, real, dev,
-                             use_kernel, exact_clamp, use_window, window)
-                for dev in dict.fromkeys(devices)}
+    with timer("advect.prepare", "Preprocessing"):
+        steppers = {dev: prepare(mesh, front, back, settings, real, dev,
+                                 use_kernel, exact_clamp, use_window, window)
+                    for dev in dict.fromkeys(devices)}
     LAST_RESOLVED.clear()
     LAST_RESOLVED.update(resolve_path(steppers[devices[0]][0]))
 
@@ -704,12 +734,29 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
               for a0, b in zip(bounds[:-1], bounds[1:])]
     if n == 0:
         pieces[0] = [(0, 0)]
+    rounds = max(map(len, pieces))
+    ph = Phases(PHASES, devices[0], (len(PHASES) * n_steps + 1) * rounds) \
+        if detail and len(devices) == 1 else None
+    step = advance if ph is None else functools.partial(advance, ph=ph)
     done = {}
-    for r in range(max(map(len, pieces))):
-        batch = {(q, r): start(devices[q], *ps[r])
-                 for q, ps in enumerate(pieces) if r < len(ps)}
-        for i in range(n_steps):
-            for st, p in batch.values():
-                advance(st, p, i)
-        done.update({k: p.raw() for k, (_, p) in batch.items()})
-    return concat_raw([done[k] for k in sorted(done)], devices[0])
+    with timer("advect.loop", "GPUKernel", device=devices[0]):
+        for r in range(rounds):
+            batch = {(q, r): start(devices[q], *ps[r])
+                     for q, ps in enumerate(pieces) if r < len(ps)}
+            if ph is not None:
+                ph.start()
+            for i in range(n_steps):
+                for st, p in batch.values():
+                    step(st, p, i)
+            done.update({k: p.raw() for k, (_, p) in batch.items()})
+        out = concat_raw([done[k] for k in sorted(done)], devices[0])
+        if ph is not None:
+            ph.close(mgr)
+    if detail:
+        mgr.add("advect.steps", n_steps * rounds)
+        for raw in done.values():
+            if raw.window_misses is not None:
+                mgr.add_lazy("advect.window_misses", raw.window_misses)
+                mgr.add_lazy("advect.window_clamp_misses",
+                             raw.window_clamp_misses)
+    return out

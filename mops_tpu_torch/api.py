@@ -6,6 +6,13 @@ Function names keep the reference's MOPS_* spelling so reference scripts
 port mechanically.  An app runs on the card unless ``init`` is given
 device="cpu"; without a card a CUDA app raises.  ``precision`` ("fp64" or
 "fp32") is the dtype of the preprocessing, the field and the advection.
+
+Each run and ``active_attribute`` is a request of utils.timer (api.<kind>),
+which numbers the spans within it.  A trajectory request's spans:
+cellsearch.query (CPUCompute), advect.prepare (Preprocessing), advect.loop
+(GPUKernel: the device's stream time), advect.wait (the host waiting for
+the loop's tail, Other), advect.readback (the records to the host,
+MemoryCopy) and trajectory.finalize (CPUCompute).
 """
 
 from __future__ import annotations
@@ -24,7 +31,7 @@ from .settings import (SamplingSettings, SaveType, TrajectoryLine,
                        TrajectorySettings, VisualizationSettings,
                        VisualizeType)
 from .solution import SolutionFields, preprocess
-from .utils import TimerManager, timer
+from .utils.timer import TimerManager, timer, wait
 
 def solution_id(time_stamp: str, timestep: int) -> int:
     """32-bit FNV-1a hash of "<timeStamp>_<timestep>" as a signed int
@@ -123,9 +130,11 @@ class MOPSApp:
     def active_attribute(self, id1: int, id2: Optional[int] = None) -> None:
         if id1 not in self.solutions or (id2 is not None and id2 not in self.solutions):
             raise KeyError(f"solution id not found: {id1}/{id2}")
-        back = self.solutions[id2] if id2 is not None else None
-        self.field = self._field(self.solutions[id1], back,
-                                 self.field._search if self.field else None)
+        with TimerManager.instance().request("api.active_attribute"):
+            back = self.solutions[id2] if id2 is not None else None
+            self.field = self._field(
+                self.solutions[id1], back,
+                self.field._search if self.field else None)
 
     # -- runs ---------------------------------------------------------------
     def generate_sample_points(self, cfg: SamplingSettings) -> np.ndarray:
@@ -133,19 +142,29 @@ class MOPSApp:
             return seeding.generate_sample_points_at_centers(self.mesh)
         return seeding.generate_sample_points(cfg)
 
-    def _advect(self, sample_points, cfg, back=None,
-                devices: Optional[int] = None):
+    def _trajectories(self, sample_points, cfg, back=None,
+                      devices: Optional[int] = None) -> List[TrajectoryLine]:
         """One trajectory run from the field's tables (moved to the app's
         device once), its particles split over the app's devices, or for
         this run only over ``devices`` of them (as ``init``'s: more than
-        the machine's cards raises)."""
+        the machine's cards raises); then the records read back and the
+        lines finalized on the host."""
         run_devices = self.devices if devices is None \
             else self._devices_for(devices)
         cells = self.field.calc_in_which_cells(sample_points)
         mesh, front = self.field.device_tables()
-        return advect.run_advection(mesh, front, sample_points, cells, cfg,
-                                    back=back, dtype=self._dtype(),
-                                    devices=run_devices)
+        raw = advect.run_advection(mesh, front, sample_points, cells, cfg,
+                                   back=back, dtype=self._dtype(),
+                                   devices=run_devices)
+        with timer("advect.wait", "Other"):
+            wait(raw.points.device)
+        with timer("advect.readback", "MemoryCopy"):
+            host = [None if t is None else t.cpu().numpy()
+                    for t in (raw.points, raw.velocities, raw.attrs)]
+        with timer("trajectory.finalize", "CPUCompute"):
+            return trajectory.finalize_trajectories(
+                sample_points, host[0], host[1], cfg, attrs=host[2],
+                with_attrs=host[2] is not None)
 
     def run_streamline(self, cfg: TrajectorySettings,
                        sample_points: np.ndarray,
@@ -153,12 +172,8 @@ class MOPSApp:
         """Streamline; ``devices`` (None: init's) splits this run's
         particles over that many devices."""
         self._require_ready()
-        with timer("GPUKernel::StreamLine", "GPUKernel"):
-            raw = self._advect(sample_points, cfg, devices=devices)
-            lines = trajectory.finalize_trajectories(
-                sample_points, raw.points.cpu().numpy(),
-                raw.velocities.cpu().numpy(), cfg)
-        return lines
+        with TimerManager.instance().request("api.streamline"):
+            return self._trajectories(sample_points, cfg, devices=devices)
 
     def run_pathline(self, cfg: TrajectorySettings,
                      sample_points: np.ndarray,
@@ -170,14 +185,9 @@ class MOPSApp:
         if self.field.back is None:
             raise RuntimeError("pathline needs two active solutions "
                                "(reference src/Core/MOPSApp.cpp:266-271)")
-        with timer("GPUKernel::PathLine", "GPUKernel"):
-            raw = self._advect(sample_points, cfg, back=self.field.back,
-                               devices=devices)
-            lines = trajectory.finalize_trajectories(
-                sample_points, raw.points.cpu().numpy(),
-                raw.velocities.cpu().numpy(), cfg,
-                attrs=None if raw.attrs is None else raw.attrs.cpu().numpy(),
-                with_attrs=raw.attrs is not None)
+        with TimerManager.instance().request("api.pathline"):
+            lines = self._trajectories(sample_points, cfg,
+                                       back=self.field.back, devices=devices)
         for i, line in enumerate(lines):
             sample_points[i] = line.last_point
         return lines
@@ -187,9 +197,10 @@ class MOPSApp:
         (reference MOPSApp::runRemapping), kFixedLayer -> direct layer map
         (reference MPASOVisualizer::VisualizeFixedLayer)."""
         self._require_ready()
-        with timer("GPUKernel::Remapping", "GPUKernel"):
+        with TimerManager.instance().request("api.remap"):
             if cfg.visualize_type == VisualizeType.FIXED_LAYER:
-                imgs = [remap_mod.run_fixed_layer(self.field, cfg)]
+                with timer("remap.fixed_layer", "GPUKernel", self.device):
+                    imgs = [remap_mod.run_fixed_layer(self.field, cfg)]
             else:
                 imgs = remap_mod.run_remapping(self.field, cfg)
         if cfg.save_type != SaveType.NONE:
@@ -207,7 +218,7 @@ class MOPSApp:
 
     def run_regrid(self, cfg: VisualizationSettings) -> np.ndarray:
         self._require_ready()
-        with timer("GPUKernel::ReGrid", "GPUKernel"):
+        with timer("GPUKernel::ReGrid", "GPUKernel", self.device):
             return remap_mod.run_regrid(self.field, cfg)
 
     def _require_ready(self) -> None:

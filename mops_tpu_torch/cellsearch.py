@@ -22,6 +22,7 @@ from scipy.spatial import cKDTree
 from . import native
 from .advect import _relocate_packed, build_reloc_xyz
 from .mesh import MPASMesh
+from .utils.timer import timed
 
 
 class CellSearch:
@@ -35,6 +36,7 @@ class CellSearch:
     there and loaded on the next build over the same cells, like the
     reference's KDTree.bin (:247-285)."""
 
+    @timed("cellsearch.build", "Preprocessing")
     def __init__(self, mesh: MPASMesh, prefer_native: bool = True,
                  cache_dir=None):
         xyz = mesh.cell_xyz.detach().cpu().double().numpy()

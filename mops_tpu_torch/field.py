@@ -19,6 +19,7 @@ import torch
 from .cellsearch import CellSearch
 from .mesh import MPASMesh, resolve_device
 from .solution import SolutionFields
+from .utils.timer import timed
 
 
 @dataclasses.dataclass
@@ -51,6 +52,7 @@ class Field:
                             self.front.to(self.device, self.dtype))
         return self._device
 
+    @timed("cellsearch.query", "CPUCompute")
     def calc_in_which_cells(self, points: np.ndarray) -> np.ndarray:
         """Nearest-cell-center assignment (reference
         MPASOField::calcInWhichCells, src/Core/MPASOField.cpp:23-34)."""

@@ -17,6 +17,8 @@ import subprocess
 import time
 from pathlib import Path
 
+from ..utils.timer import TimerManager
+
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 # IEEE division and square root are required by the step kernels (see
 # csrc/stage_kernel.cu): no fast-math.  No implicit contraction into fused
@@ -45,12 +47,14 @@ def build_library(source: Path, stem: str, parts: int = 1) -> tuple[Path, str]:
     """Compile ``source`` (cached by source and flags) and return (library
     path, build log with ptxas's register/spill report).  With ``parts`` > 1
     one nvcc process per part is started at once, then one link.  The log
-    is kept beside the library and read back on a cache hit."""
+    is kept beside the library and read back on a cache hit.  The recorder
+counts each call as ``kernels.compiled`` or ``kernels.cached``."""
     key = hashlib.sha1(source.read_bytes() + " ".join(NVCC_FLAGS).encode()
                        + str(parts).encode()).hexdigest()[:16]
     lib_path = BUILD_DIR / f"lib{stem}_{key}.so"
     log_path = lib_path.with_suffix(".log")
     if lib_path.exists():
+        TimerManager.instance().add("kernels.cached")
         return lib_path, (log_path.read_text() if log_path.exists() else "")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tag = f"{key}.{os.getpid()}"
@@ -83,6 +87,7 @@ def build_library(source: Path, stem: str, parts: int = 1) -> tuple[Path, str]:
                + "".join(logs))
         log_path.write_text(log)
         os.replace(tmp, lib_path)
+        TimerManager.instance().add("kernels.compiled")
     finally:
         for proc in procs:
             if proc.poll() is None:

@@ -20,11 +20,14 @@ Importing this module builds nothing.
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
+from typing import Optional
 
 import torch
 
 from .nvcc_build import build_library
+from ..utils.timer import TimerManager
 from ..step import (cell_rise, first_rise, pathline_step, start_layer,
                     streamline_step, window_cols, window_pathline_step,
                     window_streamline_step)
@@ -168,6 +171,51 @@ def _raise_on(name, err):
         raise RuntimeError(f"{name}: launch failed, cudaGetLastError() = {err}")
 
 
+# The recorder's counter of each step kernel's launches is this prefix and
+# the kernel's key in COUNT_KEYS.
+LAUNCHES = "kernels.launches."
+
+
+def _launched(key: str) -> None:
+    TimerManager.instance().add(LAUNCHES + key)
+
+
+def _count(attr: str):
+    """A wrapper's ``launches`` or ``repair_launches``: its key's counter
+    in the recorder; set only to 0, which resets it."""
+    def get(self):
+        key = self._keys[attr]
+        if key is None:
+            raise AttributeError(attr)
+        return TimerManager.instance().counter(LAUNCHES + key)
+
+    def put(self, value):
+        if value != 0:
+            raise ValueError(f"{attr} can only be reset to 0")
+        TimerManager.instance().reset_counter(LAUNCHES + self._keys[attr])
+    return property(get, put)
+
+
+class _Counted:
+    """A step wrapper whose ``launches`` (and ``repair_launches``, for a
+    window kernel and its masked repair) read the recorder's counters."""
+
+    launches = _count("launches")
+    repair_launches = _count("repair_launches")
+
+    def __init__(self, fn, key: str, repair: Optional[str] = None):
+        functools.update_wrapper(self, fn)
+        self._keys = {"launches": key, "repair_launches": repair}
+
+    def __call__(self, *args, **kwargs):
+        return self.__wrapped__(*args, **kwargs)
+
+
+def _counted(key: str, repair: Optional[str] = None):
+    return lambda fn: _Counted(fn, key, repair)
+
+
+@_counted("k1")
 def fused_streamline_step(pos, depth_neg, nv, vids, table, n_layers: int,
                           dt: float, euler: bool = False):
     """One fused streamline step (RK4, or Euler) for every particle.
@@ -179,7 +227,7 @@ def fused_streamline_step(pos, depth_neg, nv, vids, table, n_layers: int,
       n_layers L, dt signed seconds.
     Returns (new_pos (N, 3), hvel (N, 3), wvel (N,), ok (N,) bool).
 
-    CUDA tensors launch the kernel (and count the launch in
+    CUDA tensors launch the kernel (and count the launch, read by
     ``fused_streamline_step.launches``); CPU tensors run
     ``fused_streamline_step_plain``.
     """
@@ -204,11 +252,9 @@ def fused_streamline_step(pos, depth_neg, nv, vids, table, n_layers: int,
                  int(bool(euler)), new_pos.data_ptr(), hvel.data_ptr(),
                  wvel.data_ptr(), ok.data_ptr(), None, None, None, stream)
     _raise_on(name, err)
-    fused_streamline_step.launches += 1
+    _launched("k1")
     return new_pos, hvel, wvel, ok
 
-
-fused_streamline_step.launches = 0
 
 
 def fused_streamline_step_plain(pos, depth_neg, nv, vids, table,
@@ -224,6 +270,7 @@ def fused_streamline_step_plain(pos, depth_neg, nv, vids, table,
                            euler, exact_clamp)
 
 
+@_counted("k2")
 def fused_pathline_step(pos, depth_neg, nv, vids, table_f, table_b,
                         n_layers: int, dt: float, alphas, euler: bool = False,
                         n_attrs: int = 0):
@@ -237,7 +284,7 @@ def fused_pathline_step(pos, depth_neg, nv, vids, table_f, table_b,
     Returns (new_pos (N, 3), hvel (N, 3), wvel (N,), ok (N,) bool,
     attr (N, 3) with slots >= n_attrs zero, or None when n_attrs == 0).
 
-    CUDA tensors launch the kernel (and count the launch in
+    CUDA tensors launch the kernel (and count the launch, read by
     ``fused_pathline_step.launches``); CPU tensors run
     ``fused_pathline_step_plain``.
     """
@@ -270,11 +317,9 @@ def fused_pathline_step(pos, depth_neg, nv, vids, table_f, table_b,
                  None if attr is None else attr.data_ptr(), None, None, None,
                  stream)
     _raise_on(name, err)
-    fused_pathline_step.launches += 1
+    _launched("k2")
     return new_pos, hvel, wvel, ok, attr
 
-
-fused_pathline_step.launches = 0
 
 
 def layout(entry: str, n_vertices: int, n_layers: int,
@@ -362,6 +407,7 @@ def _window_outputs(pos, depth_neg, n_attrs=0):
             torch.empty_like(pos) if n_attrs else None), (ints(n), ints(1))
 
 
+@_counted("k3", "k3 repair")
 def fused_window_streamline_step(pos, depth_neg, nv, vids, s, table, rise,
                                  n_layers: int, n_window: int, dt: float,
                                  euler: bool = False):
@@ -413,7 +459,7 @@ def fused_window_streamline_step(pos, depth_neg, nv, vids, s, table, rise,
                  int(bool(euler)), *(t.data_ptr() for t in out[:7]),
                  lst.data_ptr(), cnt.data_ptr(), stream)
         _raise_on(name, err)
-        fused_window_streamline_step.launches += 1
+        _launched("k3")
         # the miss lanes' full-column step (K1 over their list)
         err = repair(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
                      vids.data_ptr(), table.data_ptr(), n, K, F, n_layers,
@@ -421,12 +467,9 @@ def fused_window_streamline_step(pos, depth_neg, nv, vids, s, table, rise,
                      *(t.data_ptr() for t in out[:4]), lst.data_ptr(),
                      cnt.data_ptr(), out[4].data_ptr(), stream)
         _raise_on(f"{name} (repair)", err)
-        fused_window_streamline_step.repair_launches += 1
+        _launched("k3 repair")
     return out[:7]
 
-
-fused_window_streamline_step.launches = 0
-fused_window_streamline_step.repair_launches = 0
 
 
 def _window_inputs(table, vids, s, n_layers, n_window, n_attrs):
@@ -460,6 +503,7 @@ def fused_window_streamline_step_plain(pos, depth_neg, nv, vids, s, table,
             torch.clamp(layer, 1, n_layers - 1).to(torch.int32), miss, clamp)
 
 
+@_counted("k4", "k4 repair")
 def fused_window_pathline_step(pos, depth_neg, nv, vids, s, table_f, table_b,
                                rise_f, rise_b, n_layers: int, n_window: int,
                                dt: float, alphas, euler: bool = False,
@@ -509,7 +553,7 @@ def fused_window_pathline_step(pos, depth_neg, nv, vids, s, table_f, table_b,
                  int(bool(euler)), *(t.data_ptr() for t in out[:7]),
                  lst.data_ptr(), cnt.data_ptr(), attr, stream)
         _raise_on(name, err)
-        fused_window_pathline_step.launches += 1
+        _launched("k4")
         # the miss lanes' full-column step (K2 over their list)
         err = repair(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
                      vids.data_ptr(), table_f.data_ptr(), table_b.data_ptr(),
@@ -518,12 +562,9 @@ def fused_window_pathline_step(pos, depth_neg, nv, vids, s, table_f, table_b,
                      attr, lst.data_ptr(), cnt.data_ptr(), out[4].data_ptr(),
                      stream)
         _raise_on(f"{name} (repair)", err)
-        fused_window_pathline_step.repair_launches += 1
+        _launched("k4 repair")
     return out
 
-
-fused_window_pathline_step.launches = 0
-fused_window_pathline_step.repair_launches = 0
 
 
 def fused_window_pathline_step_plain(pos, depth_neg, nv, vids, s, table_f,
@@ -559,8 +600,9 @@ def fused_window_pathline_step_plain(pos, depth_neg, nv, vids, s, table_f,
             attr if n_attrs else None)
 
 
-# The step wrappers' launch counters, as launch_counts reads them: K1-K4
-# and the window paths' masked K1/K2 repairs.
+# The step kernels' launch counters, as launch_counts reads them through
+# the wrappers' attributes (a stand-in put in a wrapper's place counts its
+# own): K1-K4 and the window paths' masked K1/K2 repairs.
 COUNT_KEYS = ("k1", "k2", "k3", "k3 repair", "k4", "k4 repair")
 
 
@@ -573,8 +615,8 @@ def _counters():
 
 
 def launch_counts() -> dict:
-    """The step kernels' launch counts (their wrappers' counters), keyed as
-    COUNT_KEYS.  The K1/K2 instance a count launched is
+    """The step kernels' launch counts (the recorder's counters
+    kernels.launches.<key>), keyed as COUNT_KEYS.  The K1/K2 instance a count launched is
     column_instance(L) of its run."""
     return {key: getattr(fn, attr)
             for key, (fn, attr) in zip(COUNT_KEYS, _counters())}

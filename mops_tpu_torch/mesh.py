@@ -9,10 +9,13 @@ n+1 "land" sentinel some meshes use) becomes -1.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Optional
 
 import numpy as np
 import torch
+
+from .utils.timer import TimerManager, timed
 
 
 def _normalize_connectivity(raw: np.ndarray, n_valid_targets: int) -> np.ndarray:
@@ -123,17 +126,25 @@ class MPASMesh:
 
     def to(self, device=None, dtype: Optional[torch.dtype] = None) -> "MPASMesh":
         """Move every tensor to ``device``; cast the float tensors to
-        ``dtype`` (index tensors stay int32)."""
-        out = {}
+        ``dtype`` (index tensors stay int32).  A call that moves or casts a
+        tensor is a span, mesh.to."""
+        t0 = time.time_ns()
+        out, moved = {}, False
         for f in dataclasses.fields(self):
             v = getattr(self, f.name)
             if isinstance(v, torch.Tensor):
-                v = v.to(device=device,
+                w = v.to(device=device,
                          dtype=dtype if f.name in _FLOAT_FIELDS else None)
+                moved |= w is not v
+                v = w
             out[f.name] = v
+        if moved:
+            TimerManager.instance().record("mesh.to", "Preprocessing", t0,
+                                           time.time_ns())
         return MPASMesh(**out)
 
     @classmethod
+    @timed("mesh.from_raw", "Preprocessing")
     def from_raw(cls,
                  cell_xyz: np.ndarray,
                  vertex_xyz: np.ndarray,

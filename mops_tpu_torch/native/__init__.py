@@ -24,6 +24,8 @@ from typing import Optional
 
 import numpy as np
 
+from ..utils.timer import TimerManager
+
 SOURCE = Path(__file__).resolve().parent / "host_ops.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "_build"
 CXX = "g++"
@@ -43,9 +45,11 @@ def _library_path(flags) -> Path:
 
 def build() -> Optional[Path]:
     """The library's path, compiled if no cached build exists; None without
-    a compiler or when no flag set compiles."""
+    a compiler or when no flag set compiles.  The recorder counts a build
+    as ``kernels.compiled``, a cached library as ``kernels.cached``."""
     for flags in FLAG_SETS:
         if _library_path(flags).exists():
+            TimerManager.instance().add("kernels.cached")
             return _library_path(flags)
     cxx = shutil.which(CXX)
     if cxx is None:
@@ -58,6 +62,7 @@ def build() -> Optional[Path]:
                               capture_output=True)
         if proc.returncode == 0:
             os.replace(tmp, path)
+            TimerManager.instance().add("kernels.compiled")
             return path
         tmp.unlink(missing_ok=True)
     return None

@@ -41,6 +41,7 @@ from .mesh import MPASMesh
 from .settings import VisualizationSettings
 from .solution import SolutionFields
 from .step import _clamp_profile, _in_mesh, _weighted_vertex_value
+from .utils.timer import TimerManager, timed, timer, wait
 
 
 def _pixel_positions(cfg: VisualizationSettings) -> np.ndarray:
@@ -101,16 +102,19 @@ def resolve_remap_chunk(chunk: Optional[int], n: int) -> int:
 _DEVPIX_CACHE: dict = {}
 
 
+@timed("remap.pixels", "CPUCompute")
 def _device_pixel_chunks(field: Field, cfg: VisualizationSettings,
                          kind: str, make_pixels, chunk: int):
     """((C, chunk, 3) pix, (C, chunk) cells, n) on the field's device in its
     dtype, cached.  The tail is padded with the last pixel and cell -1;
-    ``chunk`` 0 or >= n gives one unpadded chunk."""
+    ``chunk`` 0 or >= n gives one unpadded chunk.  A span, remap.pixels; a
+    miss of the cache counts remap.pixel_cache_miss."""
     mesh, _ = field.device_tables()
     key = _geometry_key(field, cfg, kind) + (chunk, str(mesh.dtype),
                                              str(mesh.device))
     hit = _DEVPIX_CACHE.get(key)
     if hit is None:
+        TimerManager.instance().add("remap.pixel_cache_miss")
         pix, cells = _pixel_cells(field, cfg, kind, make_pixels)
         n = pix.shape[0]
         size = chunk if chunk and n > chunk else n
@@ -241,7 +245,10 @@ def run_remapping(field: Field, cfg: VisualizationSettings,
     the groups; the TBB kernel :238-471 fills attrs 0-1 of group 0 -- this
     build fills every group).  The pixels are evaluated in fixed-size chunks
     (see resolve_remap_chunk) on the field's device and the host pixel->cell
-    KD query is cached per (mesh, image geometry)."""
+    KD query is cached per (mesh, image geometry).  Spans: remap.pixels,
+    remap.launch (the chunks' launches, GPUKernel: the device's stream
+    time), remap.wait (the host waiting for them, Other) and
+    remap.readback (the images to the host, MemoryCopy)."""
     mesh, sol = field.device_tables()
     w, h = cfg.image_width, cfg.image_height
     n_pix = w * h
@@ -258,10 +265,16 @@ def run_remapping(field: Field, cfg: VisualizationSettings,
                                  depth_accurate=depth_accurate,
                                  use_attrs=use_attrs)
 
-    vel_img, attr_img = _run_chunked(batch, (pix_c, cells_c), n)
-    out = [vel_img.cpu().numpy().reshape(h, w, 3)]
+    with timer("remap.launch", "GPUKernel", device=mesh.device):
+        vel_img, attr_img = _run_chunked(batch, (pix_c, cells_c), n)
+    with timer("remap.wait", "Other"):
+        wait(mesh.device)
+    with timer("remap.readback", "MemoryCopy"):
+        vel_img = vel_img.cpu().numpy()
+        attr_img = None if attr_img is None else attr_img.cpu().numpy()
+    out = [vel_img.reshape(h, w, 3)]
     if attr_img is not None:
-        groups = attr_img.cpu().numpy().reshape(h, w, -1)
+        groups = attr_img.reshape(h, w, -1)
         for g in range(groups.shape[-1] // 3):
             out.append(groups[..., 3 * g:3 * g + 3])
     return out

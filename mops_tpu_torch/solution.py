@@ -19,6 +19,7 @@ import torch
 
 from . import geo, interp
 from .mesh import MPASMesh, resolve_device
+from .utils.timer import timer
 
 # Vertex-axis chunk of cell_to_vertex: bounds the (chunk, 3, L[, 3]) gather
 # transient independently of the mesh size.
@@ -228,10 +229,17 @@ def preprocess(mesh: MPASMesh, raw: Dict[str, object],
     zonal/meridional if present else RBF from normalVelocity, then every
     field transferred cell->vertex.  Any other (nCells, L) array in ``raw``
     becomes a named attribute (temperature, salinity, ...).  ``dtype`` casts
-    the raw arrays; None keeps their own.
+    the raw arrays; None keeps their own.  The call is a span,
+    solution.preprocess, with the device's time on a card.
     """
-    mesh = mesh.to(resolve_device(device))
+    dev = resolve_device(device)
+    with timer("solution.preprocess", "Preprocessing", device=dev):
+        return _preprocess(mesh.to(dev), raw, timestamp, timestep, dtype)
 
+
+def _preprocess(mesh: MPASMesh, raw: Dict[str, object], timestamp: str,
+                timestep: int, dtype: Optional[torch.dtype]
+                ) -> SolutionFields:
     def tensor(v):
         return torch.as_tensor(v, device=mesh.device, dtype=dtype)
 

@@ -15,6 +15,8 @@ bit-equal, block sums within 1e-12 of the sum of the block's magnitudes
 (the same values added in other orders).
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -885,3 +887,59 @@ def test_l80_kernel_path_matches_oracle(card, use_window):
                                rtol=0, atol=5e-6)
     np.testing.assert_allclose(got.final_depth.cpu().numpy(), depths,
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_detail_under_a_cuda_profiler(card, monkeypatch):
+    """Under a CUDA-only torch.profiler, as the benchmark's traced runs
+    take it, a window-path streamline records detail: the step loop's
+    phases with stream time, on the profile's time axis (every step kernel
+    starts after advect.loop's start and ends before its end is read), and
+    detail launches nothing: the kernels and copies are the same, name for
+    name, with the detail predicate forced off."""
+    import collections
+    import importlib
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    tm = importlib.import_module("mops_tpu_torch.utils.timer")
+    mesh, sol, dev = card
+    seeds = mtt.seeding.generate_sample_points(mtt.SamplingSettings(
+        sample_range=(9, 9), lat_range=(-60, 60), lon_range=(-170, 170)))
+    cells = mtt.CellSearch(mesh).query(seeds)
+    cfg = mtt.TrajectorySettings(
+        delta_t=600, simulation_duration=600 * 12, record_t=1200,
+        particle_depths=np.linspace(10.0, 3900.0, len(seeds)).astype(
+            np.float32))
+    mgr = tm.TimerManager.instance()
+
+    def traced():
+        mgr.reset()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with mgr.request("api.test"):
+                detail = mgr.detail()
+                mtt.run_advection(mesh, sol, seeds, cells, cfg, window=W)
+            torch.cuda.synchronize()
+        events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+                  for e in prof.profiler.kineto_results.events()
+                  if e.device_type() == DeviceType.CUDA]
+        return detail, events, mgr.spans()
+
+    traced()                                      # builds and warms up
+    detail, events, spans = traced()
+    assert detail
+    assert advect.LAST_RESOLVED["kernel"] == "k3"
+    loop = [s for s in spans if s.name == "advect.loop"][0]
+    phases = [s for s in spans if s.name in advect.PHASES]
+    assert [s.name for s in phases] == list(advect.PHASES)
+    assert all(s.parent == loop.id and s.device_ms > 0 for s in phases)
+    assert sum(s.device_ms for s in phases) <= loop.device_ms
+    steps = [e for e in events if "window_streamline_kernel" in e[0]]
+    assert len(steps) == cfg.n_steps
+    assert all(loop.start_ns <= s for _, s, _ in steps)
+    assert max(e for _, _, e in steps) <= time.time_ns()
+    monkeypatch.setattr(tm, "profiling", lambda: False)
+    off, events_off, spans_off = traced()
+    assert not off and not any(s.name in advect.PHASES for s in spans_off)
+    assert collections.Counter(n for n, _, _ in events) \
+        == collections.Counter(n for n, _, _ in events_off)

@@ -29,6 +29,9 @@ SKIP_NAMES = {
                  "once to each device of the list",
     "pad_to_multiple": "pads the particle axis to the Mesh's size; the "
                        "port's slices need no padding",
+    "start": "TimerManager's name-keyed start/stop: the port's recorder "
+             "nests spans on a per-thread stack (span, timer)",
+    "stop": "TimerManager's name-keyed start/stop (see start)",
 }
 # Parameters with no counterpart, anywhere or in one function.
 SKIP_PARAMS = {
@@ -42,6 +45,8 @@ SKIP_PARAMS = {
                                     "port's are Python floats",
     ("run_advection_migrating", "dmesh"): "a jax.sharding Mesh; the port "
                                           "takes devices=",
+    ("record", "ms"): "TimerManager.record: the port's takes the span's "
+                      "start and end on the profiler's clock",
 }
 
 
