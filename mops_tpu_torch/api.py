@@ -11,8 +11,10 @@ Each run and ``active_attribute`` is a request of utils.timer (api.<kind>),
 which numbers the spans within it.  A trajectory request's spans:
 cellsearch.query (CPUCompute), advect.prepare (Preprocessing), advect.loop
 (GPUKernel: the device's stream time), advect.wait (the host waiting for
-the loop's tail, Other), advect.readback (the records to the host,
-MemoryCopy) and trajectory.finalize (CPUCompute).
+the loop's tail, Other) and trajectory.finalize (CPUCompute: the lines
+assembled and cleaned on the records' device, then built on the host),
+with advect.readback (the finalized blocks to the host, MemoryCopy) nested
+in it.
 """
 
 from __future__ import annotations
@@ -147,8 +149,8 @@ class MOPSApp:
         """One trajectory run from the field's tables (moved to the app's
         device once), its particles split over the app's devices, or for
         this run only over ``devices`` of them (as ``init``'s: more than
-        the machine's cards raises); then the records read back and the
-        lines finalized on the host."""
+        the machine's cards raises); then the lines finalized on the
+        records' device and read back once."""
         run_devices = self.devices if devices is None \
             else self._devices_for(devices)
         cells = self.field.calc_in_which_cells(sample_points)
@@ -158,13 +160,10 @@ class MOPSApp:
                                    devices=run_devices)
         with timer("advect.wait", "Other"):
             wait(raw.points.device)
-        with timer("advect.readback", "MemoryCopy"):
-            host = [None if t is None else t.cpu().numpy()
-                    for t in (raw.points, raw.velocities, raw.attrs)]
         with timer("trajectory.finalize", "CPUCompute"):
             return trajectory.finalize_trajectories(
-                sample_points, host[0], host[1], cfg, attrs=host[2],
-                with_attrs=host[2] is not None)
+                sample_points, raw.points, raw.velocities, cfg,
+                attrs=raw.attrs, with_attrs=raw.attrs is not None)
 
     def run_streamline(self, cfg: TrajectorySettings,
                        sample_points: np.ndarray,
@@ -188,8 +187,8 @@ class MOPSApp:
         with TimerManager.instance().request("api.pathline"):
             lines = self._trajectories(sample_points, cfg,
                                        back=self.field.back, devices=devices)
-        for i, line in enumerate(lines):
-            sample_points[i] = line.last_point
+        if lines:
+            sample_points[:] = np.stack([line.last_point for line in lines])
         return lines
 
     def run_remapping(self, cfg: VisualizationSettings) -> List[np.ndarray]:

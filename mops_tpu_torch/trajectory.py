@@ -8,83 +8,108 @@ Host-side plumbing of reference src/Common/TrajectoryCommon.h:
     variant copies velocity.x/.y into temperature/salinity (:179-180).
   - RemoveNaNTrajectoriesAndReindex (:57-129): truncate at the first
     non-finite point, pad with the last valid point, zero the velocity there.
+
+``finalize_trajectories`` does all of it as block operations on the
+records' own device (the card's records are finalized on the card), reads
+each block back once, and gives every line row views of the host blocks.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+import gc
+import itertools
+from typing import List
 
 import numpy as np
+import torch
 
 from .settings import TrajectoryLine, TrajectorySettings
+from .utils.timer import TimerManager, timer, wait
 
 
-def finalize_trajectories(seeds: np.ndarray,
-                          points: np.ndarray,
-                          velocities: np.ndarray,
+def finalize_trajectories(seeds, points, velocities,
                           settings: TrajectorySettings,
-                          attrs: Optional[np.ndarray] = None,
+                          attrs=None,
                           with_attrs: bool = False) -> List[TrajectoryLine]:
-    """Assemble + clean trajectory lines from raw (N, R, 3) host record
-    buffers (Common::FinalizeTrajectoryLines followed by
-    RemoveNaNTrajectoriesAndReindex)."""
-    seeds = np.asarray(seeds, dtype=np.float64)
-    points = np.asarray(points, dtype=np.float64)
-    velocities = np.asarray(velocities, dtype=np.float64)
+    """Assemble + clean trajectory lines from raw (N, R, 3) record buffers
+    (Common::FinalizeTrajectoryLines followed by
+    RemoveNaNTrajectoriesAndReindex).
+
+    The records may be NumPy arrays or torch tensors on any device; the
+    float64 blocks are built and cleaned there (torch ops), then read back
+    once (span advect.readback).  Each line's points, velocity,
+    temperature, salinity and attrs are rows of those host blocks, its
+    last_point a row of a block of its own.  With detail on, the counter
+    trajectory.cut_lines counts the lines that held a non-finite point.
+    """
+    points = torch.as_tensor(points)
+    dev = points.device
+    f64 = torch.float64
     n, n_rec = points.shape[:2]
 
     # points: [seed] + R records; velocity: R records + one trailing zero
     # (the cleanup's resize(original_len) append, TrajectoryCommon.h:88).
-    pts = np.concatenate([seeds[:, None, :], points], axis=1)      # (N, R+1, 3)
-    vel = np.concatenate(
-        [velocities, np.zeros((n, 1, 3), dtype=velocities.dtype)], axis=1)
-
+    pts = torch.empty((n, n_rec + 1, 3), dtype=f64, device=dev)
+    pts[:, 0] = torch.as_tensor(seeds, dtype=f64, device=dev)
+    pts[:, 1:] = points
+    vel = torch.zeros((n, n_rec + 1, 3), dtype=f64, device=dev)
+    vel[:, :-1] = torch.as_tensor(velocities, device=dev)
+    att = ts = None
     if with_attrs and attrs is not None:
-        att = np.asarray(attrs, dtype=np.float64)
-        att = np.concatenate([att, np.zeros((n, 1, 3))], axis=1)
+        att = torch.zeros((n, n_rec + 1, 3), dtype=f64, device=dev)
+        att[:, :-1] = torch.as_tensor(attrs, device=dev)
         # reference bug preserved: temperature/salinity get velocity.x/.y
-        # (TrajectoryCommon.h:179-180)
-        temp = np.concatenate([vel[:, :-1, 0], np.zeros((n, 1))], axis=1)
-        sal = np.concatenate([vel[:, :-1, 1], np.zeros((n, 1))], axis=1)
-    else:
-        att = None
-        temp = np.zeros((n, n_rec + 1))
-        sal = np.zeros((n, n_rec + 1))
+        # (TrajectoryCommon.h:179-180); ts[0] temperature, ts[1] salinity
+        ts = torch.zeros((2, n, n_rec + 1), dtype=f64, device=dev)
+        ts[:, :, :-1] = vel[:, :-1, :2].permute(2, 0, 1)
 
-    finite = np.isfinite(pts).all(axis=2)                          # (N, R+1)
-    # first non-finite index per line (R+1 if none)
-    bad = ~finite
-    cut = np.where(bad.any(axis=1), bad.argmax(axis=1), n_rec + 1)
+    # the first non-finite point of each line that has one; from there on
+    # the line repeats its last finite point (the seed's where the seed
+    # itself is not finite) and its velocity is zero from the point before
+    bad = ~torch.isfinite(pts).all(dim=2)                        # (N, R+1)
+    rows = bad.any(dim=1).nonzero().squeeze(1)
+    if len(rows):
+        j = torch.arange(n_rec + 1, device=dev)
+        cut = torch.where(bad[rows], j, n_rec + 1).amin(dim=1,
+                                                        keepdim=True)
+        src = torch.where(j < cut, j, (cut - 1).clamp(min=0))    # (m, R+1)
+        pts[rows] = pts[rows].gather(1, src[..., None].expand(-1, -1, 3))
+        vel[rows] = vel[rows].masked_fill((j >= cut - 1)[..., None], 0.0)
+        if ts is not None:
+            ts[:, rows] = ts[:, rows].gather(2, src.expand(2, -1, -1))
+    mgr = TimerManager.instance()
+    if mgr.detail():
+        mgr.add("trajectory.cut_lines", len(rows))
 
-    depths = settings.effective_depths(n)
-    lines: List[TrajectoryLine] = []
-    for i in range(n):
-        p = pts[i].copy()
-        v = vel[i].copy()
-        t = temp[i].copy()
-        s = sal[i].copy()
-        a = att[i].copy() if att is not None else None
-        k = int(cut[i])
-        if k == 0:
-            p[:] = p[0]
-            v[:] = 0.0
-            t[:] = t[0]
-            s[:] = s[0]
-        elif k < n_rec + 1:
-            p[k:] = p[k - 1]
-            v[k - 1:] = 0.0
-            t[k:] = t[k - 1]
-            s[k:] = s[k - 1]
-        lines.append(TrajectoryLine(
-            line_id=i,
-            points=p, velocity=v, temperature=t, salinity=s,
-            last_point=p[-1].copy(),
-            duration=float(settings.simulation_duration),
-            timestamp=float(settings.delta_t),
-            depth=float(depths[i]),
-            attrs=a,
-        ))
-    return lines
+    wait(dev)              # the read-back's span times the copies alone
+    with timer("advect.readback", "MemoryCopy"):
+        pts, vel = pts.cpu().numpy(), vel.cpu().numpy()
+        att = None if att is None else att.cpu().numpy()
+        ts = None if ts is None else ts.cpu().numpy()
+    if ts is None:                 # a streamline's temperature and salinity
+        ts = np.zeros((2, n, n_rec + 1))
+    return _lines(pts, vel, ts, att, settings)
+
+
+def _lines(pts, vel, ts, att, settings) -> List[TrajectoryLine]:
+    """One TrajectoryLine a row of the host blocks (the cyclic collector
+    paused while they are made: none of them holds a cycle)."""
+    n = len(pts)
+    last = pts[:, -1].copy()
+    depths = settings.effective_depths(n).tolist()
+    duration = itertools.repeat(float(settings.simulation_duration))
+    timestamp = itertools.repeat(float(settings.delta_t))
+    att = itertools.repeat(None) if att is None else att
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        # TrajectoryLine's fields in order, one row of each block a line
+        return list(itertools.starmap(TrajectoryLine, zip(
+            range(n), pts, vel, ts[0], ts[1], last, duration, timestamp,
+            depths, att)))
+    finally:
+        if enabled:
+            gc.enable()
 
 
 def remove_nan_trajectories_and_reindex(lines: List[TrajectoryLine]) -> List[TrajectoryLine]:

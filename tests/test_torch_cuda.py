@@ -688,6 +688,74 @@ def test_api_lines_equal_direct_run(card, card_back, pathline):
                                                      for l in want]))
 
 
+@pytest.mark.cuda
+def test_finalize_on_the_card_equals_host_finalize(card, card_back):
+    """Lines finalized from records on the card equal those finalized from
+    the same records copied to the host first, bit for bit;
+    trajectory.cut_lines counts exactly the lines planted with a
+    non-finite record; run_pathline's chained seeds are the lines' last
+    points."""
+    from torch.profiler import ProfilerActivity, profile
+    from mops_tpu_torch.utils.timer import TimerManager
+    mesh, sol, dev = card
+    gen = torch.Generator(device=dev).manual_seed(5)
+    n, r = 3000, 40
+    seeds = np.random.default_rng(5).normal(size=(n, 3)) * 6.4e6
+    pts = torch.randn((n, r, 3), generator=gen, device=dev) * 6.4e6
+    vels = torch.randn((n, r, 3), generator=gen, device=dev)
+    attrs = torch.randn((n, r, 3), generator=gen, device=dev)
+    planted = torch.randperm(n, generator=gen, device=dev)[:97]
+    where = torch.randint(0, r, (97,), generator=gen, device=dev)
+    pts[planted[:60], where[:60], 1] = float("nan")
+    pts[planted[60:], where[60:], 0] = float("inf")
+    seeds[5, 0] = np.nan            # a non-finite seed: one more line
+    n_cut = len(set(planted.tolist()) | {5})
+    cfg = mtt.TrajectorySettings(delta_t=60, record_t=60,
+                                 simulation_duration=60 * r,
+                                 particle_depths=np.linspace(1, 900, n))
+    mgr = TimerManager.instance()
+    for with_attrs in (False, True):
+        a = attrs if with_attrs else None
+        with profile(activities=[ProfilerActivity.CPU]):
+            with mgr.request("api.test"):
+                got = mtt.finalize_trajectories(seeds, pts, vels, cfg,
+                                                attrs=a,
+                                                with_attrs=with_attrs)
+        rid = [s.request for s in mgr.spans() if s.name == "api.test"][-1]
+        assert mgr.counters()[rid]["trajectory.cut_lines"] == n_cut
+        want = mtt.finalize_trajectories(
+            seeds, pts.cpu(), vels.cpu(), cfg,
+            attrs=None if a is None else a.cpu(), with_attrs=with_attrs)
+        assert type(got) is list and len(got) == len(want) == n
+        for x, y in zip(got, want):
+            assert (x.line_id, x.duration, x.timestamp, x.depth) == \
+                (y.line_id, y.duration, y.timestamp, y.depth)
+            for f in ("points", "velocity", "temperature", "salinity",
+                      "last_point", "attrs"):
+                u, v = getattr(x, f), getattr(y, f)
+                if v is None:
+                    assert u is None
+                    continue
+                assert (u.dtype, u.shape) == (v.dtype, v.shape)
+                assert u.tobytes() == v.tobytes(), (f, x.line_id)
+    app = mtt.MOPSApp()
+    app.init("cuda", "fp64")
+    app.begin()
+    app.add_grid(mesh)
+    app.add_solution(1, sol)
+    app.add_solution(2, card_back)
+    app.end()
+    app.active_attribute(1, 2)
+    chained = mtt.seeding.generate_sample_points(mtt.SamplingSettings(
+        sample_range=(9, 9), lat_range=(-60, 60), lon_range=(-170, 170)))
+    first = chained.copy()
+    lines = app.run_pathline(mtt.TrajectorySettings(
+        delta_t=600, simulation_duration=600 * 12, record_t=1200), chained)
+    assert not np.array_equal(chained, first)
+    np.testing.assert_array_equal(chained,
+                                  np.stack([l.last_point for l in lines]))
+
+
 def _card_run(card, card_back, pathline, f32):
     """Seeds, cells, settings and tables of a small multi-device run on the
     card (float32 when ``f32``, the main path's dtype)."""

@@ -126,6 +126,74 @@ def test_trajectory_copy_equals_original():
                 np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
 
 
+def _plant(cut, seeds, pts):
+    """Non-finite values where ``cut`` says (R = 5 records)."""
+    if cut == "seed":                 # cut 0
+        seeds[2, 1] = np.nan
+        seeds[4, 0] = -np.inf
+    elif cut == "first":              # cut 1
+        pts[1, 0, 2] = np.nan
+    elif cut == "middle":
+        pts[3, 2, 0] = np.inf
+    elif cut == "last":               # cut R
+        pts[5, 4, 1] = np.nan
+    elif cut == "mixed":              # NaN and inf, a later one after a cut
+        pts[0, 1, :] = np.nan
+        pts[0, 3, 0] = np.inf
+        pts[3, 3, 1] = -np.inf
+        seeds[6, 2] = np.inf
+        pts[2, 4, 2] = np.nan
+
+
+@pytest.mark.parametrize("cut", ["none", "seed", "first", "middle", "last",
+                                 "mixed"])
+@pytest.mark.parametrize("with_attrs", [False, True],
+                         ids=["streamline", "attrs"])
+@pytest.mark.parametrize("dtype,source,depths", [
+    (np.float32, "numpy", True), (np.float64, "numpy", False),
+    (np.float32, "tensor", False), (np.float64, "tensor", True)],
+    ids=["f32-numpy-depths", "f64-numpy", "f32-tensor", "f64-tensor-depths"])
+def test_finalize_equals_original_bit_for_bit(cut, with_attrs, dtype, source,
+                                              depths):
+    """The block finalize gives the original loop's lines bit for bit, as
+    a list of lines whose last_point is no view of its points."""
+    rng = np.random.default_rng(7)
+    n, r = 8, 5
+    seeds = rng.normal(size=(n, 3)) * 6.4e6
+    pts = (rng.normal(size=(n, r, 3)) * 6.4e6).astype(dtype)
+    vels = rng.normal(size=(n, r, 3)).astype(dtype)
+    attrs = rng.normal(size=(n, r, 3)).astype(dtype) if with_attrs else None
+    _plant(cut, seeds, pts)
+    kw = dict(delta_t=60, record_t=120, simulation_duration=600)
+    if depths:
+        kw["particle_depths"] = np.linspace(5.0, 900.0, n)
+    ref = mt.finalize_trajectories(seeds, pts, vels,
+                                   mt.TrajectorySettings(**kw), attrs=attrs,
+                                   with_attrs=with_attrs)
+    wrap = torch.from_numpy if source == "tensor" else (lambda a: a)
+    got = mtt.finalize_trajectories(
+        seeds, wrap(pts), wrap(vels), mtt.TrajectorySettings(**kw),
+        attrs=None if attrs is None else wrap(attrs), with_attrs=with_attrs)
+    assert type(got) is list and len(got) == len(ref) == n
+    for a, b in zip(got, ref):
+        for f in ("line_id", "duration", "timestamp", "depth"):
+            assert getattr(a, f) == getattr(b, f), f
+            assert type(getattr(a, f)) is type(getattr(b, f)), f
+        for f in ("points", "velocity", "temperature", "salinity",
+                  "last_point", "attrs"):
+            x, y = getattr(a, f), getattr(b, f)
+            if y is None:
+                assert x is None, f
+                continue
+            assert isinstance(x, np.ndarray), f
+            assert (x.dtype, x.shape) == (y.dtype, y.shape), f
+            assert x.tobytes() == y.tobytes(), (f, a.line_id)
+    line = got[-1]
+    before = line.points.copy()
+    line.last_point[:] = 1.0
+    assert line.points.tobytes() == before.tobytes()
+
+
 @pytest.mark.parametrize("kw", [
     dict(delta_t=120, simulation_duration=86400, record_t=360),
     dict(delta_t=600, simulation_duration=600 * 14, record_t=1200,

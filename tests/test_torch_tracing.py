@@ -233,14 +233,18 @@ def test_api_totals_equal_the_requests_leaf_time(app, case, mgr):
     assert total == pytest.approx(leaf, rel=0.01)
     top = _of(spans, rid, "api.streamline")[0]
     assert 0 < total <= top.host_ms
+    fin = _of(spans, rid, "trajectory.finalize")[0]
+    # the read-back is the finalized blocks', inside finalize
+    assert _of(spans, rid, "advect.readback")[0].parent == fin.id
     assert all(s.parent == top.id for s in mine
-               if s is not top and s.name != "cellsearch.build")
+               if s is not top and s.name not in ("cellsearch.build",
+                                                  "advect.readback"))
 
 
 def test_categories_hold_finalize_loop_and_readback(app, case, mgr):
     """GPUKernel is the step loop (its stream time; the host's on the
-    CPU), CPUCompute the cell search and finalize, MemoryCopy the
-    read-back."""
+    CPU), CPUCompute the cell search and finalize less the read-back
+    nested in it, MemoryCopy the read-back."""
     _, _, seeds, cfg = case
     app.run_streamline(cfg, seeds.copy())
     spans = mgr.spans()
@@ -249,7 +253,7 @@ def test_categories_hold_finalize_loop_and_readback(app, case, mgr):
     assert mgr.category_time("GPUKernel") == pytest.approx(
         one["advect.loop"].ms)
     assert mgr.category_time("CPUCompute") == pytest.approx(
-        one["trajectory.finalize"].host_ms
+        one["trajectory.finalize"].leaf_ms()
         + one["cellsearch.query"].leaf_ms())
     assert mgr.category_time("MemoryCopy") == pytest.approx(
         one["advect.readback"].host_ms)
@@ -287,6 +291,30 @@ def test_detail_on_under_a_profiler(app, case, mgr, monkeypatch):
     assert counts["advect.steps"] == cfg.n_steps
     assert counts["advect.window_misses"] >= \
         counts["advect.window_clamp_misses"] >= 0
+
+
+def test_cut_lines_counts_the_lines_with_a_non_finite_point(mgr):
+    """With detail on, finalize counts the lines its NaN cut engaged on;
+    with detail off it counts nothing."""
+    rng = np.random.default_rng(3)
+    seeds = rng.normal(size=(10, 3))
+    pts = torch.from_numpy(rng.normal(size=(10, 4, 3)).astype(np.float32))
+    vels = torch.zeros_like(pts)
+    pts[1, 0, 0] = float("nan")
+    pts[4, 2, 1] = float("inf")
+    pts[4, 3, 1] = float("nan")
+    seeds[7, 2] = np.nan
+    cfg = mtt.TrajectorySettings(delta_t=60, record_t=60,
+                                 simulation_duration=240)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with mgr.request("api.test"):
+            mtt.finalize_trajectories(seeds, pts, vels, cfg)
+    with mgr.request("api.test"):
+        mtt.finalize_trajectories(seeds, pts, vels, cfg)
+    on, off = [s.request for s in mgr.spans() if s.name == "api.test"]
+    counts = mgr.counters()
+    assert counts[on] == {"trajectory.cut_lines": 3}
+    assert counts[off] == {}
 
 
 def test_window_miss_counter_equals_the_runs_misses(case, mgr, monkeypatch):
