@@ -8,7 +8,10 @@ device="cpu"; without a card a CUDA app raises.  ``precision`` ("fp64" or
 "fp32") is the dtype of the preprocessing, the field and the advection.
 
 Each run and ``active_attribute`` is a request of utils.timer (api.<kind>),
-which numbers the spans within it.  A trajectory request's spans:
+which numbers the spans within it; its span's ``meta`` keeps the app's
+``precision`` and, for a trajectory, the ``path`` the run resolved
+(advect.LAST_RESOLVED: kernel, window width, K1/K2 instance, dtype).  A
+trajectory request's spans:
 cellsearch.query (CPUCompute), advect.prepare (Preprocessing), advect.loop
 (GPUKernel: the device's stream time), advect.wait (the host waiting for
 the loop's tail, Other) and trajectory.finalize (CPUCompute: the lines
@@ -132,7 +135,7 @@ class MOPSApp:
     def active_attribute(self, id1: int, id2: Optional[int] = None) -> None:
         if id1 not in self.solutions or (id2 is not None and id2 not in self.solutions):
             raise KeyError(f"solution id not found: {id1}/{id2}")
-        with TimerManager.instance().request("api.active_attribute"):
+        with self._request("api.active_attribute"):
             back = self.solutions[id2] if id2 is not None else None
             self.field = self._field(
                 self.solutions[id1], back,
@@ -158,6 +161,7 @@ class MOPSApp:
         raw = advect.run_advection(mesh, front, sample_points, cells, cfg,
                                    back=back, dtype=self._dtype(),
                                    devices=run_devices)
+        TimerManager.instance().annotate(path=dict(advect.LAST_RESOLVED))
         with timer("advect.wait", "Other"):
             wait(raw.points.device)
         with timer("trajectory.finalize", "CPUCompute"):
@@ -171,7 +175,7 @@ class MOPSApp:
         """Streamline; ``devices`` (None: init's) splits this run's
         particles over that many devices."""
         self._require_ready()
-        with TimerManager.instance().request("api.streamline"):
+        with self._request("api.streamline"):
             return self._trajectories(sample_points, cfg, devices=devices)
 
     def run_pathline(self, cfg: TrajectorySettings,
@@ -184,7 +188,7 @@ class MOPSApp:
         if self.field.back is None:
             raise RuntimeError("pathline needs two active solutions "
                                "(reference src/Core/MOPSApp.cpp:266-271)")
-        with TimerManager.instance().request("api.pathline"):
+        with self._request("api.pathline"):
             lines = self._trajectories(sample_points, cfg,
                                        back=self.field.back, devices=devices)
         if lines:
@@ -196,7 +200,7 @@ class MOPSApp:
         (reference MOPSApp::runRemapping), kFixedLayer -> direct layer map
         (reference MPASOVisualizer::VisualizeFixedLayer)."""
         self._require_ready()
-        with TimerManager.instance().request("api.remap"):
+        with self._request("api.remap"):
             if cfg.visualize_type == VisualizeType.FIXED_LAYER:
                 with timer("remap.fixed_layer", "GPUKernel", self.device):
                     imgs = [remap_mod.run_fixed_layer(self.field, cfg)]
@@ -219,6 +223,12 @@ class MOPSApp:
         self._require_ready()
         with timer("GPUKernel::ReGrid", "GPUKernel", self.device):
             return remap_mod.run_regrid(self.field, cfg)
+
+    def _request(self, name: str):
+        """The recorder's request ``name``, its span keeping the app's
+        precision."""
+        return TimerManager.instance().request(name,
+                                               precision=self.precision)
 
     def _require_ready(self) -> None:
         if self.state != _State.READY or self.field is None:

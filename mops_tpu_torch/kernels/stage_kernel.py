@@ -172,12 +172,17 @@ def _raise_on(name, err):
 
 
 # The recorder's counter of each step kernel's launches is this prefix and
-# the kernel's key in COUNT_KEYS.
+# the kernel's key in COUNT_KEYS; a launch of the double instance counts
+# under F64_LAUNCHES and the same key as well.
 LAUNCHES = "kernels.launches."
+F64_LAUNCHES = "kernels.f64_launches."
 
 
-def _launched(key: str) -> None:
-    TimerManager.instance().add(LAUNCHES + key)
+def _launched(key: str, real: torch.dtype) -> None:
+    mgr = TimerManager.instance()
+    mgr.add(LAUNCHES + key)
+    if real == torch.float64:
+        mgr.add(F64_LAUNCHES + key)
 
 
 def _count(attr: str):
@@ -252,7 +257,7 @@ def fused_streamline_step(pos, depth_neg, nv, vids, table, n_layers: int,
                  int(bool(euler)), new_pos.data_ptr(), hvel.data_ptr(),
                  wvel.data_ptr(), ok.data_ptr(), None, None, None, stream)
     _raise_on(name, err)
-    _launched("k1")
+    _launched("k1", pos.dtype)
     return new_pos, hvel, wvel, ok
 
 
@@ -317,7 +322,7 @@ def fused_pathline_step(pos, depth_neg, nv, vids, table_f, table_b,
                  None if attr is None else attr.data_ptr(), None, None, None,
                  stream)
     _raise_on(name, err)
-    _launched("k2")
+    _launched("k2", pos.dtype)
     return new_pos, hvel, wvel, ok, attr
 
 
@@ -459,7 +464,7 @@ def fused_window_streamline_step(pos, depth_neg, nv, vids, s, table, rise,
                  int(bool(euler)), *(t.data_ptr() for t in out[:7]),
                  lst.data_ptr(), cnt.data_ptr(), stream)
         _raise_on(name, err)
-        _launched("k3")
+        _launched("k3", pos.dtype)
         # the miss lanes' full-column step (K1 over their list)
         err = repair(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
                      vids.data_ptr(), table.data_ptr(), n, K, F, n_layers,
@@ -467,7 +472,7 @@ def fused_window_streamline_step(pos, depth_neg, nv, vids, s, table, rise,
                      *(t.data_ptr() for t in out[:4]), lst.data_ptr(),
                      cnt.data_ptr(), out[4].data_ptr(), stream)
         _raise_on(f"{name} (repair)", err)
-        _launched("k3 repair")
+        _launched("k3 repair", pos.dtype)
     return out[:7]
 
 
@@ -553,7 +558,7 @@ def fused_window_pathline_step(pos, depth_neg, nv, vids, s, table_f, table_b,
                  int(bool(euler)), *(t.data_ptr() for t in out[:7]),
                  lst.data_ptr(), cnt.data_ptr(), attr, stream)
         _raise_on(name, err)
-        _launched("k4")
+        _launched("k4", pos.dtype)
         # the miss lanes' full-column step (K2 over their list)
         err = repair(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
                      vids.data_ptr(), table_f.data_ptr(), table_b.data_ptr(),
@@ -562,7 +567,7 @@ def fused_window_pathline_step(pos, depth_neg, nv, vids, s, table_f, table_b,
                      attr, lst.data_ptr(), cnt.data_ptr(), out[4].data_ptr(),
                      stream)
         _raise_on(f"{name} (repair)", err)
-        _launched("k4 repair")
+        _launched("k4 repair", pos.dtype)
     return out
 
 
@@ -623,6 +628,8 @@ def launch_counts() -> dict:
 
 
 def reset_counts():
-    """Every step kernel's launch count to 0."""
+    """Every step kernel's launch count, and its double instance's, to 0."""
     for fn, attr in _counters():
         setattr(fn, attr, 0)
+    for key in COUNT_KEYS:
+        TimerManager.instance().reset_counter(F64_LAUNCHES + key)

@@ -9,7 +9,8 @@ with, so spans and a profile's device events share one time axis), the id
 of the span it is nested in (a per-thread stack) and the id of its request:
 the sequence number of the API call (``request``, opened by
 ``MOPSApp.run_*`` and ``active_attribute``) that contains it, None outside
-one.
+one.  A request's span also keeps ``meta``, what the call ran with (the
+API's precision and, for a trajectory, ``advect.LAST_RESOLVED``).
 
 Device time.  Work on the card is asynchronous.  A span opened with a CUDA
 ``device`` carries a pair of CUDA events; its device (stream) milliseconds
@@ -67,8 +68,8 @@ class Span:
     steps: ``host_ns`` the summed host time, ``events`` a pair a step)."""
 
     __slots__ = ("id", "name", "category", "parent", "request", "detail",
-                 "start_ns", "end_ns", "host_ns", "events", "_device_ms",
-                 "_children")
+                 "start_ns", "end_ns", "host_ns", "events", "meta",
+                 "_device_ms", "_children")
 
     def __init__(self, name, category, parent, request, detail, start_ns):
         self.id = next(TimerManager._ids)
@@ -77,6 +78,7 @@ class Span:
         self.start_ns = self.end_ns = start_ns
         self.host_ns = 0
         self.events = None
+        self.meta = None
         self._device_ms = None
         self._children = None
 
@@ -112,12 +114,13 @@ class Span:
 
 
 class _Request:
-    __slots__ = ("id", "name", "detail", "counts", "lazy")
+    __slots__ = ("id", "name", "detail", "counts", "lazy", "span")
 
     def __init__(self, rid, name, detail):
         self.id, self.name, self.detail = rid, name, detail
         self.counts: Dict[str, int] = {}
         self.lazy: Dict[str, list] = {}
+        self.span: Optional[Span] = None
 
 
 class TimerManager:
@@ -237,12 +240,14 @@ class TimerManager:
         return span
 
     @contextlib.contextmanager
-    def request(self, name: str):
+    def request(self, name: str, **meta):
         """An API call: a span of no category whose id numbers the spans
-        and counters within it, and the moment the detail state is read.
-        A call made inside another joins its request."""
+        and counters within it, and the moment the detail state is read;
+        ``meta`` (what the call ran with) is kept on its span.  A call
+        made inside another joins its request."""
         if self._current() is not None:
-            with self.span(name):
+            with self.span(name) as span:
+                span.meta = meta or None
                 yield
             return
         req = _Request(next(self._request_ids), name, profiling())
@@ -250,10 +255,19 @@ class TimerManager:
             self._requests.append(req)
         self._tl.request = req
         try:
-            with self.span(name):
+            with self.span(name) as span:
+                span.meta = meta or None
+                req.span = span
                 yield
         finally:
             self._tl.request = None
+
+    def annotate(self, **meta) -> None:
+        """Add ``meta`` to the current request's span (what the call
+        resolved as it ran); nothing outside a request."""
+        req = self._current()
+        if req is not None and req.span is not None:
+            req.span.meta = {**(req.span.meta or {}), **meta}
 
     def detail(self) -> bool:
         """The current request's detail state (read at its start); outside
@@ -338,7 +352,7 @@ class TimerManager:
 
     def print_detailed(self) -> None:
         """The kept spans in the order they ended: request, name, category,
-        host ms and device ms."""
+        host ms and device ms; under a span with ``meta``, its items."""
         print("=" * 86)
         print(f"{'Req':>5}  {'Operation':<34}{'Category':<16}"
               f"{'host ms':>14}{'device ms':>14}")
@@ -348,6 +362,8 @@ class TimerManager:
             dev = "" if s.device_ms is None else f"{s.device_ms:.3f}"
             print(f"{req:>5}  {s.name:<34}{s.category or '':<16}"
                   f"{s.host_ms:>14.3f}{dev:>14}")
+            for key, value in (s.meta or {}).items():
+                print(f"{'':>7}{key}: {value}")
         print("=" * 86)
 
 

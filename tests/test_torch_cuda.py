@@ -689,6 +689,51 @@ def test_api_lines_equal_direct_run(card, card_back, pathline):
 
 
 @pytest.mark.cuda
+def test_f64_launches_count_the_double_instances(card, card_back):
+    """Through the API on the card, every step-kernel launch of an fp64
+    request counts under kernels.f64_launches.<key> as well, and none of
+    an fp32 request's does; each request's span keeps the app's precision
+    and the path its run resolved."""
+    from mops_tpu_torch.utils.timer import TimerManager
+    mesh, sol, dev = card
+    mgr = TimerManager.instance()
+    seeds = mtt.seeding.generate_sample_points(mtt.SamplingSettings(
+        sample_range=(9, 9), lat_range=(-60, 60), lon_range=(-170, 170)))
+    cfg = mtt.TrajectorySettings(
+        delta_t=600, simulation_duration=600 * 12, record_t=1200,
+        particle_depths=np.linspace(10.0, 3900.0, len(seeds)).astype(
+            np.float32), fail_mode=mtt.FailMode.ZERO)
+    for precision in ("fp64", "fp32"):
+        app = mtt.MOPSApp()
+        app.init("cuda", precision)
+        app.begin()
+        app.add_grid(mesh)
+        app.add_solution(1, sol)
+        app.add_solution(2, card_back)
+        app.end()
+        for pathline in (False, True):
+            app.active_attribute(*((1, 2) if pathline else (1,)))
+            run = app.run_pathline if pathline else app.run_streamline
+            run(cfg, seeds.copy())
+            top = [s for s in mgr.spans()
+                   if s.name == ("api.pathline" if pathline
+                                 else "api.streamline")][-1]
+            counts = mgr.counters()[top.request]
+            launches = {k[len(sk.LAUNCHES):]: n for k, n in counts.items()
+                        if k.startswith(sk.LAUNCHES)}
+            f64 = {k[len(sk.F64_LAUNCHES):]: n for k, n in counts.items()
+                   if k.startswith(sk.F64_LAUNCHES)}
+            key = "k4" if pathline else "k3"
+            assert launches == {key: cfg.n_steps,
+                                f"{key} repair": cfg.n_steps}
+            assert f64 == (launches if precision == "fp64" else {})
+            path = top.meta["path"]
+            assert top.meta["precision"] == precision
+            assert (path["kernel"], path["dtype"]) == (
+                key, "float64" if precision == "fp64" else "float32")
+
+
+@pytest.mark.cuda
 def test_finalize_on_the_card_equals_host_finalize(card, card_back):
     """Lines finalized from records on the card equal those finalized from
     the same records copied to the host first, bit for bit;

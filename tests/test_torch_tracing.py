@@ -3,6 +3,7 @@ ring bound, leaf-only category totals, the profiler's clock, detail on and
 off, the counters, and the spans the API, the step loop, remap and set-up
 record.  Imports no jax."""
 
+import contextlib
 import importlib
 import threading
 import time
@@ -406,3 +407,98 @@ def test_set_up_spans(case, mgr):
     assert SETUP <= set(names)
     assert all(s.request is None and s.category == "Preprocessing"
                for s in mgr.spans())
+
+
+def test_request_span_keeps_precision_and_path(app, case, mgr, monkeypatch,
+                                               capsys):
+    """A trajectory request's span keeps the app's precision and the path
+    its run resolved (advect.LAST_RESOLVED), and the detailed report
+    prints them; an image request keeps the precision alone."""
+    _window_on(monkeypatch)
+    _, _, seeds, cfg = case
+    app.run_streamline(cfg, seeds.copy())
+    top = [s for s in mgr.spans() if s.name == "api.streamline"][-1]
+    assert top.meta == {"precision": "fp64",
+                        "path": dict(advect.LAST_RESOLVED)}
+    assert top.meta["path"]["n_window"] == 4
+    assert top.meta["path"]["dtype"] == "float64"
+    assert all(s.meta is None for s in mgr.spans() if s is not top)
+    app.run_remapping(mtt.VisualizationSettings(
+        image_width=16, image_height=8, fixed_depth=20.0,
+        save_type=mtt.SaveType.NONE))
+    image = [s for s in mgr.spans() if s.name == "api.remap"][-1]
+    assert image.meta == {"precision": "fp64"}
+    mgr.print_detailed()
+    out = capsys.readouterr().out
+    assert out.count("precision: fp64") == 2
+    assert "path: {'kernel': 'k3'" in out
+
+
+def test_untraced_request_spans_as_they_were(app, case, mgr, monkeypatch):
+    """Without a profiler a request records the coarse spans alone, in
+    their order, and counts nothing."""
+    _window_on(monkeypatch)
+    _, _, seeds, cfg = case
+    app.run_streamline(cfg, seeds.copy())
+    app.run_streamline(cfg, seeds.copy())
+    spans = mgr.spans()
+    rid = _request_id(spans, "api.streamline")
+    assert [s.name for s in _of(spans, rid)] == [
+        "cellsearch.query", "advect.prepare", "advect.loop", "advect.wait",
+        "advect.readback", "trajectory.finalize", "api.streamline"]
+    assert not any(s.detail for s in _of(spans, rid))
+    assert mgr.counters()[rid] == {}
+
+
+def _f64_launch_pct():
+    from benchmark import tracing
+    return tracing.load_reader("f64_launch_pct")
+
+
+def _streamline_ctx():
+    from benchmark import tracing
+    return tracing.Context([], [], [tracing.Request(0, "streamline", 0, 1,
+                                                    steps=3)], {}, {})
+
+
+def test_f64_launch_pct_is_none_on_the_plain_path(app, case, mgr):
+    """A profiled request whose steps ran the plain torch versions counts
+    no launch, so the share reads nothing."""
+    _, _, seeds, cfg = case
+    with profile(activities=[ProfilerActivity.CPU]):
+        app.run_streamline(cfg, seeds.copy())
+    rid = _request_id(mgr.spans(), "api.streamline")
+    assert not any(k.startswith(sk.LAUNCHES) for k in mgr.counters()[rid])
+    assert _f64_launch_pct()(_streamline_ctx()) is None
+
+
+def test_f64_launch_pct_reads_the_profiled_requests_counters(mgr):
+    """Each launch counts under kernels.launches.<key> and, for the double
+    instance, under kernels.f64_launches.<key> too; the share is the
+    second over the first, summed over the profiled requests (an
+    unprofiled one left out)."""
+    def request(dtype, keys, traced=True):
+        with contextlib.ExitStack() as stack:
+            if traced:
+                stack.enter_context(profile(activities=[ProfilerActivity.CPU]))
+            with mgr.request("api.streamline"):
+                for key in keys:
+                    sk._launched(key, dtype)
+        return _request_id(mgr.spans(), "api.streamline")
+
+    rid = request(torch.float64, ["k3", "k3 repair"] * 5)
+    counts = mgr.counters()[rid]
+    assert {k: v for k, v in counts.items()
+            if k.startswith(sk.F64_LAUNCHES)} == {
+        sk.F64_LAUNCHES + "k3": 5, sk.F64_LAUNCHES + "k3 repair": 5}
+    assert counts[sk.LAUNCHES + "k3"] == 5
+    request(torch.float32, ["k1"] * 7, traced=False)
+    assert _f64_launch_pct()(_streamline_ctx()) == 100.0
+    request(torch.float32, ["k4", "k4 repair"] * 5)
+    assert _f64_launch_pct()(_streamline_ctx()) == 50.0
+    mgr.reset()
+    request(torch.float32, ["k4", "k4 repair"])
+    assert not any(k.startswith(sk.F64_LAUNCHES)
+                   for c in mgr.counters().values() for k in c)
+    assert _f64_launch_pct()(_streamline_ctx()) is None
+    sk.reset_counts()
