@@ -47,6 +47,12 @@ success):
        repair launch a step: the crossing-regime solid-body field, dt
        120 s for one day, a record every 360 s;
    2b. the same through the full-column kernel (use_window=False), K1;
+   2a and 2b replay each step past advect.GRAPH_WARM_STEPS from a captured
+   CUDA graph (run_advection's default on one card), whose launch counters
+   are added a replay at a time: each is run again under torch.profiler
+   (kernel_census), where the step kernels the trace shows, the counters
+   and the steps replayed must each be one a step (census_faults) and the
+   lines bit-equal to the timed run's;
    2c. pathline, the default path, K4 and its K2 repair: the reference's
        pathline tutorial
        (tutorial/pathLine.cpp), two snapshots at ocean speeds (solid-body
@@ -59,7 +65,8 @@ success):
    an untimed run again with the clamp probe (ClampProbe): the lane-steps
    only the clamp test flagged and on how many of them the window step
    alone would have parted from the full step, its final positions
-   bit-equal to the timed run's.
+   bit-equal to the timed run's; the probe's run takes the eager loop,
+   so 2a's probe also holds the graphed run to the eager one.
 3. gate: the first 20 steps through both kernel paths against the plain
    torch path on the card, streamline and pathline, float32 and float64,
    by the bench's criterion (mops_tpu_torch.bench.gate_check: its share a
@@ -85,8 +92,9 @@ success):
    5b. the API: MOPS_Init("cuda", "fp32"), phase 2's own fields, then
        MOPS_RunStreamLine over the day and MOPS_RunPathLine over the month,
        whose last points must equal phase 2a's and 2c's bit for bit (same
-       dtype, kernels and inputs), with the launch counts checked and the
-       timing summary printed;
+       dtype, kernels and inputs), with the launch counts checked, the
+       streamline run again under torch.profiler as 2a's (kernel_census),
+       and the timing summary printed;
    5c. the CLI in-process (--synthetic 20000 --layers 60 --remap-size
        1201x601 --samples 31x31, a day at dt 120 s) into a temporary
        directory: the raw-dict add_solution path on the card; every output
@@ -124,7 +132,8 @@ success):
    7a. 2 ranks over gloo, both on the card, the streamline day through the
        window path (run_advection(group=)): each rank's rows bit-equal to
        2a's rows [start, stop), the whole gathered on rank 0 bit-equal to
-       2a, each rank's K3 and repair launches counted; wall time, each
+       2a, each rank's K3 and repair launches counted, and its slice run
+       again under torch.profiler as 2a's (kernel_census); wall time, each
        rank's step loop, particle-RK4-steps/s;
    7b. the same 2 ranks, 2 x 4 migrating shards at migrate_every 8: rank
        0's reassembled records bit-equal to 2a, every id once, none
@@ -163,7 +172,8 @@ success):
        device memory, the two paths' final positions within 100 m on at
        least bench.GATE_SHARE of the lanes; the repair's device time a step
        under torch.profiler; the edge and clamp misses' shares; the clamp
-       probe's run;
+       probe's run (eager), its final positions bit-equal to the timed
+       (graphed) run's;
    8e. (run after 8b, once 8a's and 8b's fields are freed) the pathline
        tutorial's month at L80 on case A's mesh (pathline_month): two
        snapshots at ocean speeds (phase 2c's omegas and field) with
@@ -761,7 +771,9 @@ class ClampProbe:
     which it parts from the step the run took (``differed``, parted): the
     lane-steps on which the window kernels without the clamp test would
     have left the full column.  A flagged step costs a host sync and a few
-    small torch ops, so the probe runs outside the timed runs."""
+    small torch ops, so the probe runs outside the timed runs, and a
+    streamline's probe run takes the eager loop (run_advection's
+    graph=False): a captured step may not wait on the device."""
 
     def __enter__(self):
         from mops_tpu_torch import advect
@@ -813,6 +825,63 @@ class ClampProbe:
         from mops_tpu_torch import advect
         (advect.advance, advect.fused_window_streamline_step,
          advect.fused_window_pathline_step) = self._saved
+
+
+# The step kernels' device names, as parts of their instances' names in a
+# profile: K3, K1 (and K3's masked K1 repair), K4, K2 (and K4's repair).
+STEP_KERNELS = ("window_streamline_kernel", "streamline_step_kernel",
+                "window_pathline_kernel", "pathline_step_kernel")
+
+
+def kernel_census(fn):
+    """fn() under a CUDA-only torch.profiler, with the launch counts set to
+    0 just before it: (its result, a record of the step kernels the device
+    ran, counted by name in the trace ("traced", each of STEP_KERNELS),
+    beside the launch counters ("launches", launch_counts()) and the steps
+    replayed from a captured graph ("graph_steps")).  A graphed streamline
+    adds its launch counters a replay at a time, not at a launch: the trace
+    is what shows that every replay ran its kernels."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mops_tpu_torch.kernels import stage_kernel as sk
+    from mops_tpu_torch.utils.timer import TimerManager
+    mgr = TimerManager.instance()
+    sk.reset_counts()
+    before = mgr.counter("advect.graph_steps")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    return out, {
+        "traced": {k: sum(k in nm for nm in names) for k in STEP_KERNELS},
+        "launches": sk.launch_counts(),
+        "graph_steps": mgr.counter("advect.graph_steps") - before}
+
+
+def census_faults(rec, key, n_steps):
+    """What in kernel_census's ``rec`` of a graphed streamline of
+    ``n_steps`` steps on path ``key`` ("k3": K3 and its masked K1 repair a
+    step; "k1": K1) differs from what its steps ask: each step kernel once
+    a step in the trace and in the counters, and every step past
+    advect.GRAPH_WARM_STEPS replayed.  [] when nothing does."""
+    from mops_tpu_torch import advect
+    from mops_tpu_torch.kernels import stage_kernel as sk
+    traced = dict.fromkeys(STEP_KERNELS, 0)
+    counted = dict.fromkeys(sk.COUNT_KEYS, 0)
+    traced["streamline_step_kernel"] = counted[key] = n_steps
+    if key == "k3":
+        traced["window_streamline_kernel"] = counted["k3 repair"] = n_steps
+    want = {"traced": traced, "launches": counted,
+            "graph_steps": n_steps - advect.GRAPH_WARM_STEPS}
+    return [f"{k} {rec[k]}, not {want[k]}" for k in want if rec[k] != want[k]]
+
+
+def census_line(rec):
+    return (f"traced step kernels {rec['traced']}, launch counters "
+            f"{rec['launches']}, steps replayed {rec['graph_steps']}")
 
 
 def miss_shares(raw, n_steps):
@@ -1281,6 +1350,17 @@ def front_door(dev, mesh_h, sols, seeds, cfg, pcfg, last_points, kernels,
             fail("MOPS_RunPathLine did not advance the seeds in place")
         api_summary[label] = {"seconds": times[f"5b {label}"],
                               "launches": counts[key]}
+        if key == "k3":
+            again, census = kernel_census(lambda: run(run_cfg, seeds.copy()))
+            faults = census_faults(census, key, run_cfg.n_steps)
+            same = np.array_equal(
+                np.stack([line.last_point for line in again]), got)
+            log(f"  {label} again under torch.profiler: "
+                f"{census_line(census)}; last points bit-equal: {same}")
+            if faults or not same:
+                fail(f"{label}: the traced run: {faults}, bit-equal {same}")
+            api_summary[label]["census"] = census
+            del again
         del lines
     api.MOPS_PrintTimingSummary()
     api_summary["timing_ms"] = {
@@ -1809,10 +1889,17 @@ def phase7_worker(args):
     gather_s = time.perf_counter() - t
     whole_equal = None if whole is None else all(
         torch.equal(getattr(whole, f), ref[f].to(dev)) for f in fields)
+    del raw, whole
+    again, census = kernel_census(lambda: mtt.run_advection(
+        mesh, sol, seeds, cells, cfg, use_window=True, devices=[dev],
+        group=group))
+    census["rows_equal"] = all(torch.equal(getattr(again, f),
+                                           ref[f][a:b].to(dev))
+                               for f in fields)
+    del again
     out["7a"] = {"rows": [a, b], "loop_s": loop_s, "gather_s": gather_s,
                  "launches": launches, "rows_equal": rows_equal,
-                 "whole_equal": whole_equal}
-    del raw, whole
+                 "whole_equal": whole_equal, "census": census}
     print("PHASE7 " + json.dumps(out), flush=True)
 
     # 7b: the migrating engine, this rank's shards of world x per_rank
@@ -1937,6 +2024,14 @@ def multi_process(dev, mesh_h, sols, seeds, cells, depths, cfg, refs,
             if row["launches"] != dict(dict.fromkeys(sk.COUNT_KEYS, 0),
                                        k3=steps, **{"k3 repair": steps}):
                 fail(f"7a rank {r}: launches {row['launches']}")
+            census = row["census"]
+            faults = census_faults(census, "k3", steps)
+            log(f"  7a rank {r} again under torch.profiler: "
+                f"{census_line(census)}; rows bit-equal to 2a's: "
+                f"{census['rows_equal']}")
+            if faults or not census["rows_equal"]:
+                fail(f"7a rank {r}: the traced run: {faults}, rows bit-equal "
+                     f"{census['rows_equal']}")
         if a_rows[0]["whole_equal"] is not True:
             fail("7a: rank 0 did not gather the whole")
         loop = max(row["loop_s"] for row in a_rows)
@@ -2550,16 +2645,19 @@ def reference_scale(dev, rows, ptxas, timed, times, smi):
         fail("8b: the window path left the full-column path")
     out["8b window_vs_full_within_100m"] = share
     with ClampProbe() as probe:
-        timed("8b window path, clamp probe", lambda: mtt.run_advection(
+        again = timed("8b window path, clamp probe", lambda: mtt.run_advection(
             meshes[f32], case.sols[f32], case.seeds, case.cells, cfg,
-            dtype=f32, device=dev, use_window=True))
+            dtype=f32, device=dev, use_window=True, graph=False))
+    same = torch.equal(again.final_position.double(), finals["k3"])
     clamp = out["8b window"]["window_clamp_misses"]
     log(f"  the clamp probe's run: {probe.flagged} lane-steps flagged by the "
         f"clamp test alone (the timed run counted {clamp}), on "
         f"{probe.differed} of them the window step alone would have parted "
-        "from the full step")
-    if probe.flagged != clamp:
+        f"from the full step; final positions bit-equal to the timed run's: "
+        f"{same}")
+    if probe.flagged != clamp or not same:
         fail("8b: the clamp probe's run")
+    del again
     out["8b clamp probe"] = {"flagged": probe.flagged,
                              "parted": probe.differed}
     # the window path's masked K1 repair at L80 (the generic masked
@@ -2917,7 +3015,7 @@ def main():
                 again = timed(f"run_advection {label}, clamp probe",
                               lambda: mtt.run_advection(
                                   mesh32, front, seeds, cells, run_cfg,
-                                  back=back, use_window=True))
+                                  back=back, use_window=True, graph=False))
             shares.update(probe_flagged=probe.flagged,
                           parted=probe.differed)
             same = torch.equal(again.final_position, raw_traj.final_position)
@@ -2928,6 +3026,18 @@ def main():
                 f"to the timed run's: {same} (repair time a step: phase 4)")
             if not same or probe.flagged != shares["clamp"]:
                 fail(f"{label}: the clamp probe's run")
+            del again
+        if not pathline:
+            again, census = kernel_census(lambda: mtt.run_advection(
+                mesh32, front, seeds, cells, run_cfg, use_window=windowed))
+            faults = census_faults(census, key, run_cfg.n_steps)
+            same = all(torch.equal(getattr(again, f), getattr(raw_traj, f))
+                       for f in ("points", "velocities", "final_position"))
+            log(f"  the same run under torch.profiler: {census_line(census)}"
+                f"; points, velocities and final positions bit-equal to the "
+                f"timed run's: {same}")
+            if faults or not same:
+                fail(f"{label}: the traced run: {faults}, bit-equal {same}")
             del again
         if counts[key] != run_cfg.n_steps or sum(counts.values()) \
                 != counts[key] or (windowed and repairs != run_cfg.n_steps):
@@ -2942,6 +3052,8 @@ def main():
                         "window_misses": misses}
         if windowed:
             summary[key]["misses"] = shares
+        if not pathline:
+            summary[key]["census"] = census
         attrs = raw_traj.attrs.cpu().numpy() if pathline else None
         lines = timed(f"finalize_trajectories {label}",
                       lambda: mtt.finalize_trajectories(

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import threading
 from typing import Optional
 
 import numpy as np
@@ -45,6 +46,7 @@ from .kernels.stage_kernel import (column_instance, fused_pathline_step,
                                    fused_streamline_step_plain,
                                    fused_window_pathline_step,
                                    fused_window_streamline_step,
+                                   count_launches, held_counts,
                                    pack_vertex_table, table_rise)
 from .mesh import MPASMesh, resolve_device
 from .settings import CalcDirection, CalcMethod, FailMode, TrajectorySettings
@@ -446,12 +448,14 @@ def new_particles(st: Stepper, pos, cell, depth, n_records: int,
                      clamp_misses=clamp_misses)
 
 
-def advance(st: Stepper, p: Particles, i: int,
-            ph: Optional[Phases] = None) -> None:
-    """Step ``i`` of the run for every particle of ``p``, in place:
-    relocate (not on step 0), gather the cell's vertex ids, one fused step,
-    the depth/radius update and the records (PHASES; ``ph`` marks the end
-    of each).  Launches work only: nothing here waits on the device."""
+def _phases(st: Stepper, p: Particles, i: int):
+    """Step ``i``'s first four PHASES for every particle of ``p`` as a
+    generator: each resume runs the next phase (relocate, not on step 0;
+    gather the cell's vertex ids; one fused step; the depth/radius update,
+    which leaves the new state in ``p``) and yields.  The fourth yields the
+    (buffer, value) pairs the record phase writes.  Launches work only:
+    nothing here waits on the device, and past step 0 nothing depends on
+    ``i`` but a pathline's alphas."""
     real = p.pos.dtype
     dt = st.dt
     pos, depth, cell, alive = p.pos, p.depth, p.cell, p.alive
@@ -459,15 +463,13 @@ def advance(st: Stepper, p: Particles, i: int,
     if not st.is_first[i]:
         new_cell = _relocate_packed(st.mesh, st.reloc_xyz, pos, cell)
         cell = torch.where(alive, new_cell, cell)
-    if ph is not None:
-        ph.mark()
+    yield None
     vids, nv, vids_ok = _gather_cell_vertices(st.mesh, cell)
     alphas = stage_alphas(st.alphas[i], dt, st.duration, real) \
         if st.pathline else None
     s = window_starts(p.layer, st.n_layers, st.n_window) if st.n_window \
         else None
-    if ph is not None:
-        ph.mark()
+    yield None
     if st.n_window:
         if st.pathline:
             np_k, hv_k, wv_k, ok_k, layer_k, miss, clamp, at_k = \
@@ -493,8 +495,7 @@ def advance(st: Stepper, p: Particles, i: int,
         np_k, hv_k, wv_k, ok_k = step(pos, depth_neg, nv, vids, st.table,
                                       st.n_layers, dt, euler=st.euler)
         at_k = None
-    if ph is not None:
-        ph.mark()
+    yield None
     if st.n_window:
         p.layer = torch.where(alive, layer_k, p.layer)
         counted = alive & vids_ok
@@ -519,30 +520,199 @@ def advance(st: Stepper, p: Particles, i: int,
                               nlen)[:, None] * r_new[:, None],
         new_pos)
 
-    p.pos = pos = torch.where(write_ok[:, None], new_pos, pos)
+    p.pos = torch.where(write_ok[:, None], new_pos, pos)
     p.depth = torch.where(write_ok, new_depth.to(depth.dtype), depth)
     p.cell, p.alive = cell, write_ok
-    if ph is not None:
-        ph.mark()
-
-    # first-step velocity/attr into slot 0 (TBB kernel :988-991); the
-    # attribute buffer stays zero without attributes
-    upd = write_ok[:, None]
     records = [(p.vels, hvel)]
     if at_k is not None:
         records.append((p.attrs, _where0(vids_ok[:, None], at_k)))
+    yield records
+
+
+def record(st: Stepper, p: Particles, i: int, records) -> None:
+    """Step ``i``'s record phase, after _phases: the first step's velocity
+    (and attributes) into slot 0 (TBB kernel :988-991; the attribute
+    buffer stays zero without attributes), and on a record step p.pos and
+    each of ``records``' values into the step's slot, on the lanes that
+    p.alive (the step's write mask) keeps."""
+    upd = p.alive[:, None]
     if st.is_first[i]:
         for buf, val in records:
             buf[:, 0] = torch.where(upd, val, buf[:, 0])
     if st.flags[i]:
         s = int(st.slots[i])
-        p.pts[:, s] = torch.where(upd, pos, p.pts[:, s])
+        p.pts[:, s] = torch.where(upd, p.pos, p.pts[:, s])
         for buf, val in records:
             buf[:, s] = torch.where(upd, val, buf[:, s])
         if p.rec_ids is not None:
-            p.rec_ids[:, s] = torch.where(write_ok, p.pid, p.rec_ids[:, s])
+            p.rec_ids[:, s] = torch.where(p.alive, p.pid, p.rec_ids[:, s])
+
+
+def advance(st: Stepper, p: Particles, i: int,
+            ph: Optional[Phases] = None) -> None:
+    """Step ``i`` of the run for every particle of ``p``, in place:
+    relocate (not on step 0), gather the cell's vertex ids, one fused step,
+    the depth/radius update and the records (PHASES; ``ph`` marks the end
+    of each).  Launches work only: nothing here waits on the device."""
+    for records in _phases(st, p, i):
+        if ph is not None:
+            ph.mark()
+    record(st, p, i, records)
     if ph is not None:
         ph.mark()
+
+
+# The Particles fields a step replaces with new tensors; a captured step
+# copies each back into the tensor it began from.
+_STATE = ("pos", "depth", "cell", "alive", "layer")
+# Each CUDA device's capture stream, graph memory pool and anchor graph
+# (_capture_place), made at its first capture and kept: every request
+# captures on the one stream into the one pool, so that it reuses the
+# memory its predecessor's graphs freed (a graph's own pool stays reserved
+# after the graph is gone).  The step graphs are made and dropped within a
+# request.  Captures take the lock: one capture at a time on the stream.
+_CAPTURE: dict = {}
+_CAPTURE_LOCK = threading.Lock()
+
+
+def _capture_place(dev: torch.device):
+    """(stream, pool) of ``dev``'s captures.  The pool keeps a one-node
+    graph captured into it that is never replayed: torch's pinned host
+    allocator counts a pool's users by its live graphs alone, and refuses a
+    capture into a pool whose graphs are all gone."""
+    if dev not in _CAPTURE:
+        with torch.cuda.device(dev):
+            stream, pool = torch.cuda.Stream(dev), torch.cuda.MemPool()
+            anchor = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(stream):
+                anchor.capture_begin(pool=pool.id)
+                torch.zeros(1, device=dev)
+                anchor.capture_end()
+        _CAPTURE[dev] = stream, pool, anchor
+    return _CAPTURE[dev][:2]
+
+
+# Steps a graphed loop runs eagerly before its capture: step 0 (the first
+# step's slot-0 record, no relocation) and one plain step, whose launches
+# load every kernel the capture takes and set the step kernels' attributes
+# and resident_wave's answer.
+GRAPH_WARM_STEPS = 2
+
+
+class StepGraph:
+    """A step of ``p`` past step 0 captured for replay: _phases as one CUDA
+    graph, or with ``per_phase`` one graph a phase in one shared pool (so
+    that detail marks each phase between replays: an event may not be
+    recorded inside a capture).  Every replay reads and writes the same
+    tensors: the capture ends by copying the step's new state (_STATE)
+    back into the tensors ``p`` held, and ``records`` holds the values
+    the record phase then writes, eagerly (its slot changes).  The kernel
+    launches of the capture are tallied in ``launches``, not counted.
+
+    On the CPU, which has no CUDA graphs, a replay runs the phases again:
+    the graphed loop's logic, the same on both."""
+
+    def __init__(self, st: Stepper, p: Particles, i: int, per_phase: bool):
+        self.st, self.p, self.i = st, p, i
+        self.static = {k: getattr(p, k) for k in _STATE}
+        self.width = 1 if per_phase else len(PHASES) - 1
+        self.records = None
+        self._gen = None
+        n = (len(PHASES) - 1) // self.width
+        dev = p.pos.device
+        if dev.type != "cuda":
+            self.launches = {}
+            self.replays = [functools.partial(self._run, j) for j in range(n)]
+            return
+        self.replays = []
+        with _CAPTURE_LOCK, held_counts() as self.launches:
+            stream, pool = _capture_place(dev)
+            with torch.cuda.stream(stream):
+                for j in range(n):
+                    g = torch.cuda.CUDAGraph()
+                    # thread_local: other threads' work may go on meanwhile
+                    g.capture_begin(pool=pool.id,
+                                    capture_error_mode="thread_local")
+                    try:
+                        self._run(j)
+                    finally:
+                        g.capture_end()
+                    self.replays.append(g.replay)
+
+    def _run(self, j: int) -> None:
+        """Phases j*width .. (j+1)*width - 1 of step ``i``; after the last,
+        the state copied back and the records kept."""
+        if j == 0:
+            self._gen = _phases(self.st, self.p, self.i)
+        for _ in range(self.width):
+            out = next(self._gen)
+        if (j + 1) * self.width < len(PHASES) - 1:
+            return
+        for k, t in self.static.items():
+            new = getattr(self.p, k)
+            if new is not t:
+                t.copy_(new)
+                setattr(self.p, k, t)
+        self.records = out
+
+    def replay(self, ph: Optional[Phases] = None) -> None:
+        """The captured phases once (``ph`` marks the end of each graph)."""
+        for run in self.replays:
+            run()
+            if ph is not None:
+                ph.mark()
+
+
+def step_plan(is_first, flags) -> list:
+    """Each step's kind in a graphed loop: "eager" (advance: the first
+    GRAPH_WARM_STEPS steps and any first step), then "plain" (a StepGraph
+    replay) or, where ``flags`` records, "record" (a replay, then the
+    record phase at the schedule's slot)."""
+    return ["eager" if i < GRAPH_WARM_STEPS or first
+            else "record" if flag else "plain"
+            for i, (first, flag) in enumerate(zip(is_first, flags))]
+
+
+def run_graphed(st: Stepper, p: Particles,
+                ph: Optional[Phases] = None) -> int:
+    """Every step of ``p`` as step_plan orders: the eager steps through
+    advance, the others by replays of one StepGraph captured at the first
+    of them (per phase with ``ph``, which marks each phase) and dropped on
+    return.  Counts each replay's kernel launches as the eager step would;
+    returns the steps replayed."""
+    graph, replayed = None, 0
+    for i, kind in enumerate(step_plan(st.is_first, st.flags)):
+        if kind == "eager":
+            advance(st, p, i, ph)
+            continue
+        if graph is None:
+            graph = StepGraph(st, p, i, ph is not None)
+        graph.replay(ph)
+        if kind == "record":
+            record(st, p, i, graph.records)
+        if ph is not None:
+            ph.mark()
+        replayed += 1
+    if graph is not None:
+        count_launches(graph.launches, replayed)
+    return replayed
+
+
+def resolve_graph(graph: Optional[bool], st: Stepper, devices) -> bool:
+    """Whether run_advection's step loop replays captured steps
+    (run_graphed): ``graph`` None turns it on for a kernel streamline run
+    on one CUDA device; True asks for it where it applies (on the CPU a
+    replay runs the step again), and raises on a pathline (its stage
+    alphas reach the kernels by value, so a replay would repeat one
+    step's), on several devices or on the plain path; False keeps the
+    eager loop."""
+    fits = st.use_kernel and not st.pathline and len(devices) == 1
+    if graph is None:
+        return fits and devices[0].type == "cuda"
+    if graph and not fits:
+        raise ValueError("captured steps need a kernel streamline run on one "
+                         "device")
+    return bool(graph)
 
 
 def resolve_window(use_kernel: bool, use_window: Optional[bool],
@@ -637,7 +807,8 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
                   use_window: Optional[bool] = None,
                   window: Optional[int] = None,
                   chunk: Optional[int] = None,
-                  devices=None, group=None) -> RawTrajectories:
+                  devices=None, group=None,
+                  graph: Optional[bool] = None) -> RawTrajectories:
     """Run a full streamline (back=None) or pathline advection on ``device``:
     the card unless the caller passes device="cpu" (without a card a CUDA
     request raises).  The mesh and solution tables are moved there and cast
@@ -683,6 +854,12 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
     [start, stop) of the single-process run (``gather_trajectories`` puts
     the whole on one rank).
 
+    ``graph`` replays each step past the first few from a captured CUDA
+    graph (run_graphed, resolve_graph): None turns it on for a kernel
+    streamline run on one CUDA device, False keeps the eager loop, which
+    launches every step's work from Python.  The lines are the same
+    either way, bit for bit.
+
     Every call records the path it took in LAST_RESOLVED.
 
     Spans (utils.timer): advect.prepare (the tables packed on each
@@ -692,7 +869,8 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
     also keeps PHASES, each a span of its host time and stream time summed
     over the steps, and counts advect.steps and, on the window path,
     advect.window_misses and advect.window_clamp_misses (the per-particle
-    counts, summed when read).
+    counts, summed when read).  Every call counts advect.graph_steps, the
+    steps run by replay (0 on the eager loop).
     """
     devices = [resolve_device(d) for d in (devices or [device])]
     real = mesh.dtype if dtype is None else dtype
@@ -718,6 +896,8 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
         steppers = {dev: prepare(mesh, front, back, settings, real, dev,
                                  use_kernel, exact_clamp, use_window, window)
                     for dev in dict.fromkeys(devices)}
+    graphed = resolve_graph(graph, steppers[devices[0]][0], devices) \
+        and n > 0
     LAST_RESOLVED.clear()
     LAST_RESOLVED.update(resolve_path(steppers[devices[0]][0]))
 
@@ -739,19 +919,24 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
         if detail and len(devices) == 1 else None
     step = advance if ph is None else functools.partial(advance, ph=ph)
     done = {}
+    replayed = 0
     with timer("advect.loop", "GPUKernel", device=devices[0]):
         for r in range(rounds):
             batch = {(q, r): start(devices[q], *ps[r])
                      for q, ps in enumerate(pieces) if r < len(ps)}
             if ph is not None:
                 ph.start()
-            for i in range(n_steps):
-                for st, p in batch.values():
-                    step(st, p, i)
+            if graphed:
+                replayed += run_graphed(*batch[0, r], ph)
+            else:
+                for i in range(n_steps):
+                    for st, p in batch.values():
+                        step(st, p, i)
             done.update({k: p.raw() for k, (_, p) in batch.items()})
         out = concat_raw([done[k] for k in sorted(done)], devices[0])
         if ph is not None:
             ph.close(mgr)
+    mgr.add("advect.graph_steps", replayed)
     if detail:
         mgr.add("advect.steps", n_steps * rounds)
         for raw in done.values():

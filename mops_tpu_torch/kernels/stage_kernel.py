@@ -19,8 +19,10 @@ Importing this module builds nothing.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
+import threading
 from pathlib import Path
 from typing import Optional
 
@@ -178,11 +180,41 @@ LAUNCHES = "kernels.launches."
 F64_LAUNCHES = "kernels.f64_launches."
 
 
+# The tally of held_counts on this thread, or None: launches count at once.
+_held = threading.local()
+
+
 def _launched(key: str, real: torch.dtype) -> None:
-    mgr = TimerManager.instance()
-    mgr.add(LAUNCHES + key)
+    names = [LAUNCHES + key]
     if real == torch.float64:
-        mgr.add(F64_LAUNCHES + key)
+        names.append(F64_LAUNCHES + key)
+    tally = getattr(_held, "tally", None)
+    mgr = TimerManager.instance()
+    for name in names:
+        if tally is None:
+            mgr.add(name)
+        else:
+            tally[name] = tally.get(name, 0) + 1
+
+
+@contextlib.contextmanager
+def held_counts():
+    """Launches made inside on this thread are not counted but tallied in
+    the dict yielded (counter name: launches): a CUDA graph's capture
+    launches nothing, and its replays count with count_launches."""
+    tally = {}
+    _held.tally = tally
+    try:
+        yield tally
+    finally:
+        _held.tally = None
+
+
+def count_launches(tally: dict, times: int) -> None:
+    """Count each of held_counts' ``tally`` ``times`` over."""
+    mgr = TimerManager.instance()
+    for name, n in tally.items():
+        mgr.add(name, n * times)
 
 
 def _count(attr: str):

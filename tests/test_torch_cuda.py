@@ -15,6 +15,7 @@ bit-equal, block sums within 1e-12 of the sum of the block's magnitudes
 (the same values added in other orders).
 """
 
+import dataclasses
 import time
 
 import numpy as np
@@ -1008,8 +1009,9 @@ def test_detail_under_a_cuda_profiler(card, monkeypatch):
     take it, a window-path streamline records detail: the step loop's
     phases with stream time, on the profile's time axis (every step kernel
     starts after advect.loop's start and ends before its end is read), and
-    detail launches nothing: the kernels and copies are the same, name for
-    name, with the detail predicate forced off."""
+    detail launches nothing of its own: the kernels and copies are the
+    same, name for name, with the detail predicate forced off, but for the
+    capture bookkeeping of the graphs it captures a phase apart."""
     import collections
     import importlib
 
@@ -1054,5 +1056,160 @@ def test_detail_under_a_cuda_profiler(card, monkeypatch):
     monkeypatch.setattr(tm, "profiling", lambda: False)
     off, events_off, spans_off = traced()
     assert not off and not any(s.name in advect.PHASES for s in spans_off)
-    assert collections.Counter(n for n, _, _ in events) \
-        == collections.Counter(n for n, _, _ in events_off)
+    on = collections.Counter(n for n, _, _ in events)
+    off = collections.Counter(n for n, _, _ in events_off)
+    # the same kernels and copies, but that detail captures the graphed
+    # step a phase a graph (one graph without it), and torch fills two
+    # int64 scalars of its generator's state at each capture
+    assert not off - on
+    extra = on - off
+    assert all("FillFunctor<long>" in n for n in extra)
+    assert sum(extra.values()) == 2 * (len(advect.PHASES) - 2)
+
+
+def _graph_case(card):
+    mesh, sol, dev = card
+    seeds = mtt.seeding.generate_sample_points(mtt.SamplingSettings(
+        sample_range=(12, 12), lat_range=(-70, 70), lon_range=(-175, 175)))
+    cells = mtt.CellSearch(mesh).query(seeds)
+    cells[[3, 50]] = -1                                  # dead lanes
+    return mesh, sol, seeds, cells
+
+
+def _same_bits(a, b):
+    bits = lambda t: t if t.dtype == torch.bool else t.view(torch.uint8)
+    return torch.equal(bits(a), bits(b))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("use_window", [True, False], ids=["k3", "k1"])
+@pytest.mark.parametrize("direction", ["FORWARD", "BACKWARD"])
+@pytest.mark.parametrize("fail_mode", ["ZERO", "FREEZE"])
+def test_graphed_streamline_equals_eager_bit_for_bit(card, dtype, use_window,
+                                                     direction, fail_mode):
+    """A streamline whose steps replay a captured CUDA graph (the default
+    on the card) equals the eager loop's bit for bit: points, velocities,
+    final state and window misses; each request counts the same launches
+    (kernels.launches.* and kernels.f64_launches.*), and the graphed one
+    its replayed steps."""
+    from mops_tpu_torch.utils.timer import TimerManager
+    mgr = TimerManager.instance()
+    mesh, sol, seeds, cells = _graph_case(card)
+    cfg = mtt.TrajectorySettings(
+        delta_t=600, simulation_duration=600 * 15, record_t=1800,
+        particle_depths=np.linspace(10.0, 3900.0, len(seeds)).astype(
+            np.float32),
+        direction=getattr(mtt.CalcDirection, direction),
+        fail_mode=getattr(mtt.FailMode, fail_mode))
+    runs, counts = {}, {}
+    for graph in (False, None):
+        with mgr.request("api.test"):
+            runs[graph] = mtt.run_advection(mesh, sol, seeds, cells, cfg,
+                                            dtype=dtype, use_window=use_window,
+                                            window=W, graph=graph)
+        rid = [s for s in mgr.spans() if s.name == "api.test"][-1].request
+        counts[graph] = {k: n for k, n in mgr.counters()[rid].items()
+                         if k.startswith((sk.LAUNCHES, sk.F64_LAUNCHES,
+                                          "advect.graph_steps"))}
+    for name in ("points", "velocities", "final_position", "final_depth",
+                 "final_cell", "alive", "window_misses",
+                 "window_clamp_misses"):
+        a, b = getattr(runs[False], name), getattr(runs[None], name)
+        assert (a is None) == (b is None) == (name.startswith("window")
+                                              and not use_window), name
+        assert a is None or _same_bits(a, b), name
+    replayed = cfg.n_steps - advect.GRAPH_WARM_STEPS
+    assert counts[False].pop("advect.graph_steps") == 0
+    assert counts[None].pop("advect.graph_steps") == replayed
+    key = "k3" if use_window else "k1"
+    launches = {sk.LAUNCHES + key: cfg.n_steps}
+    if use_window:
+        launches[sk.LAUNCHES + "k3 repair"] = cfg.n_steps
+    if dtype == torch.float64:
+        launches.update({sk.F64_LAUNCHES + k[len(sk.LAUNCHES):]: n
+                         for k, n in launches.items()})
+    assert counts[False] == counts[None] == launches
+
+
+@pytest.mark.cuda
+def test_successive_graphed_requests_do_not_share_storage(card):
+    """Two graphed requests' RawTrajectories share no storage, and the
+    first's values survive the second's replays."""
+    from mops_tpu_torch.utils.timer import TimerManager
+    mesh, sol, seeds, cells = _graph_case(card)
+    cfg = mtt.TrajectorySettings(
+        delta_t=600, simulation_duration=600 * 15, record_t=1800,
+        particle_depths=np.linspace(10.0, 3900.0, len(seeds)).astype(
+            np.float32))
+    fields = lambda raw: {f.name: getattr(raw, f.name)
+                          for f in dataclasses.fields(raw)
+                          if getattr(raw, f.name) is not None}
+    first = mtt.run_advection(mesh, sol, seeds, cells, cfg, window=W)
+    kept = {k: v.clone() for k, v in fields(first).items()}
+    replayed = TimerManager.instance().counter("advect.graph_steps")
+    second = mtt.run_advection(mesh, sol, seeds[::-1].copy(),
+                               cells[::-1].copy(), cfg, window=W)
+    assert TimerManager.instance().counter("advect.graph_steps") > replayed
+
+    def spans(raw):
+        return [(t.untyped_storage().data_ptr(),
+                 t.untyped_storage().data_ptr() + t.untyped_storage().nbytes())
+                for t in fields(raw).values()]
+    for a0, a1 in spans(first):
+        for b0, b1 in spans(second):
+            assert a1 <= b0 or b1 <= a0
+    for k, v in kept.items():
+        assert _same_bits(getattr(first, k), v), k
+    assert not _same_bits(first.points, second.points)
+
+
+@pytest.mark.cuda
+def test_graphed_detail_keeps_the_phases_and_the_kernels(card):
+    """A traced (detail) graphed request still keeps the five PHASES spans
+    with stream time, and the profiler sees the replayed kernels: the
+    same device kernels, name for name, as the eager loop launches, but
+    torch's bookkeeping of each capture (the graph adds besides the
+    state's copy-back, a copy a field a step)."""
+    import collections
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from mops_tpu_torch.utils.timer import TimerManager
+    mgr = TimerManager.instance()
+    mesh, sol, seeds, cells = _graph_case(card)
+    cfg = mtt.TrajectorySettings(
+        delta_t=600, simulation_duration=600 * 15, record_t=1800,
+        particle_depths=np.linspace(10.0, 3900.0, len(seeds)).astype(
+            np.float32))
+    kernels = {}
+    for graph in (False, None, False, None):          # the first two warm
+        mgr.reset()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with mgr.request("api.test"):
+                assert mgr.detail()
+                mtt.run_advection(mesh, sol, seeds, cells, cfg, window=W,
+                                  graph=graph)
+            torch.cuda.synchronize()
+        names = [e.name() for e in prof.profiler.kineto_results.events()
+                 if e.device_type() == DeviceType.CUDA]
+        kernels[graph] = collections.Counter(
+            n for n in names if not n.startswith(("Memcpy", "Memset")))
+        phases = [s for s in mgr.spans() if s.name in advect.PHASES]
+        assert [s.name for s in phases] == list(advect.PHASES)
+        assert all(s.device_ms > 0 for s in phases)
+        rid = [s for s in mgr.spans() if s.name == "api.test"][-1].request
+        counts = mgr.counters()[rid]
+        assert counts["advect.steps"] == cfg.n_steps
+        assert counts["advect.graph_steps"] == (
+            0 if graph is False else cfg.n_steps - advect.GRAPH_WARM_STEPS)
+    # torch fills two int64 scalars of its generator's state at each
+    # capture: a graph a phase but the record's
+    extra = kernels[None] - kernels[False]
+    assert not kernels[False] - kernels[None]
+    assert all("FillFunctor<long>" in n for n in extra)
+    assert sum(extra.values()) == 2 * (len(advect.PHASES) - 1)
+    assert sum(n for k, n in kernels[None].items()
+               if "window_streamline_kernel" in k) == cfg.n_steps

@@ -269,7 +269,7 @@ def test_detail_off_without_a_profiler(app, case, mgr, monkeypatch):
     rid = _request_id(spans, "api.streamline")
     assert not any(s.detail for s in _of(spans, rid))
     assert not any(s.name in advect.PHASES for s in spans)
-    assert mgr.counters()[rid] == {}
+    assert mgr.counters()[rid] == {"advect.graph_steps": 0}
 
 
 def test_detail_on_under_a_profiler(app, case, mgr, monkeypatch):
@@ -436,7 +436,7 @@ def test_request_span_keeps_precision_and_path(app, case, mgr, monkeypatch,
 
 def test_untraced_request_spans_as_they_were(app, case, mgr, monkeypatch):
     """Without a profiler a request records the coarse spans alone, in
-    their order, and counts nothing."""
+    their order, and counts only its replayed steps (none on the CPU)."""
     _window_on(monkeypatch)
     _, _, seeds, cfg = case
     app.run_streamline(cfg, seeds.copy())
@@ -447,7 +447,7 @@ def test_untraced_request_spans_as_they_were(app, case, mgr, monkeypatch):
         "cellsearch.query", "advect.prepare", "advect.loop", "advect.wait",
         "advect.readback", "trajectory.finalize", "api.streamline"]
     assert not any(s.detail for s in _of(spans, rid))
-    assert mgr.counters()[rid] == {}
+    assert mgr.counters()[rid] == {"advect.graph_steps": 0}
 
 
 def _f64_launch_pct():
@@ -502,3 +502,75 @@ def test_f64_launch_pct_reads_the_profiled_requests_counters(mgr):
                    for c in mgr.counters().values() for k in c)
     assert _f64_launch_pct()(_streamline_ctx()) is None
     sk.reset_counts()
+
+
+def _graph_step_pct():
+    from benchmark import tracing
+    return tracing.load_reader("graph_step_pct")
+
+
+def test_graph_steps_read_zero_on_the_cpu_and_on_a_pathline(case, mgr):
+    """A CPU run and a pathline keep the eager loop: each request counts
+    advect.graph_steps 0, traced or not, and graph_step_pct reads 0 over
+    the profiled requests that stepped."""
+    mesh, raw, seeds, cfg = case
+    a = papi.MOPSApp()
+    a.init("cpu", "fp64")
+    a.begin()
+    a.add_grid(mesh)
+    a.add_solution(1, raw)
+    a.add_solution(2, raw)
+    a.end()
+    for pathline in (False, True):
+        a.active_attribute(*((1, 2) if pathline else (1,)))
+        run = a.run_pathline if pathline else a.run_streamline
+        run(cfg, seeds.copy())
+        with profile(activities=[ProfilerActivity.CPU]):
+            run(cfg, seeds.copy())
+        name = "api.pathline" if pathline else "api.streamline"
+        untraced, traced = [s.request for s in mgr.spans()
+                            if s.name == name][-2:]
+        counts = mgr.counters()
+        assert counts[untraced]["advect.graph_steps"] == 0
+        assert counts[traced]["advect.graph_steps"] == 0
+        assert counts[traced]["advect.steps"] == cfg.n_steps
+        from benchmark import tracing
+        ctx = tracing.Context([], [], [tracing.Request(
+            0, "pathline" if pathline else "streamline", 0, 1,
+            steps=cfg.n_steps)], {}, {})
+        assert _graph_step_pct()(ctx) == 0.0
+
+
+def test_graph_step_pct_reads_the_replayed_share(case, mgr):
+    """Replayed steps over stepped ones, in %, over the profiled requests:
+    a graphed run replays all steps but the warm-up's."""
+    mesh, raw, seeds, cfg = case
+    sol = mtt.preprocess(mesh, raw, device="cpu")
+    cells = mtt.CellSearch(mesh).query(seeds)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with mgr.request("api.streamline"):
+            advect.run_advection(mesh, sol, seeds, cells, cfg, device="cpu",
+                                 graph=True)
+    rid = _request_id(mgr.spans(), "api.streamline")
+    replayed = cfg.n_steps - advect.GRAPH_WARM_STEPS
+    assert mgr.counters()[rid]["advect.graph_steps"] == replayed
+    assert _graph_step_pct()(_streamline_ctx()) == \
+        100.0 * replayed / cfg.n_steps
+
+
+def test_graph_step_pct_is_none_without_spans_or_its_counter(mgr,
+                                                             monkeypatch):
+    """None where the program records no spans (a name-keyed recorder) or
+    its profiled requests count no replays (a program without the graphed
+    loop)."""
+    import sys
+    import types
+    with profile(activities=[ProfilerActivity.CPU]):
+        with mgr.request("api.streamline"):
+            mgr.add("advect.steps", 3)
+    assert _graph_step_pct()(_streamline_ctx()) is None
+    old = types.ModuleType("mops_tpu_torch.utils.timer")
+    old.TimerManager = type("TimerManager", (), {"start": None,
+                                                 "stop": None})
+    monkeypatch.setitem(sys.modules, "mops_tpu_torch.utils.timer", old)
+    assert _graph_step_pct()(_streamline_ctx()) is None
