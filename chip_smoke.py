@@ -1167,13 +1167,13 @@ def window_ab(other):
     log(json.dumps({"window_ab": out, "smi": smi}))
 
 
-def front_door(dev, mesh_h, sols, seeds, cfg, pcfg, last_points, kernels,
+def front_door(dev, mesh_h, sols, seeds, cfg, pcfg, last_points, launches,
                reset_counts, timed, times, smi):
     """Phase 5: remap, the API and the CLI on ``dev`` at the slice's shape.
     ``sols`` maps (name, dtype) to phase 0's preprocessed fields,
     ``last_points`` phase 2's window paths' last points ("k3", "k4");
-    ``kernels`` the launch-counted wrappers and ``reset_counts`` their
-    reset.  Returns the remap and API summaries."""
+    ``launches`` reads K1-K5's launch counts (the repairs apart) and
+    ``reset_counts`` zeroes them.  Returns the remap and API summaries."""
     import numpy as np
     import torch
 
@@ -1334,7 +1334,7 @@ def front_door(dev, mesh_h, sols, seeds, cfg, pcfg, last_points, kernels,
         pts = seeds.copy()
         reset_counts()
         lines = timed(f"5b {label}", lambda: run(run_cfg, pts))
-        counts = {k: fn.launches for k, fn in kernels.items()}
+        counts = launches()
         got = np.stack([line.last_point for line in lines])
         equal = bool(np.array_equal(got, last_points[key]))
         log(f"  {label}: {len(lines)} lines, launches {counts}; last points "
@@ -1503,7 +1503,7 @@ def exchange_profile(run, smi):
 
 
 def multi_device(dev, mesh_h, sols, seeds, cells, depths, cfg, pcfg, refs,
-                 summary, kernels, reset_counts, timed, times, smi):
+                 summary, launches, reset_counts, timed, times, smi):
     """Phase 6: the sharded and migrating engines on the card, their shards
     all on ``dev``.  ``refs`` holds phase 2's RawTrajectories by kernel
     (k3: 2a, k1: 2b, k4: 2c), ``summary`` phase 2's rates; 6b's
@@ -1514,6 +1514,7 @@ def multi_device(dev, mesh_h, sols, seeds, cells, depths, cfg, pcfg, refs,
 
     import mops_tpu_torch as mtt
     from mops_tpu_torch import api
+    from mops_tpu_torch.kernels import stage_kernel as sk
     from mops_tpu_torch.parallel import (partition_cells, reassemble,
                                          run_advection_migrating,
                                          run_advection_sharded)
@@ -1531,9 +1532,7 @@ def multi_device(dev, mesh_h, sols, seeds, cells, depths, cfg, pcfg, refs,
 
     def counts(label):
         """The sub-phase's launches; logs its peak device memory."""
-        c = {k: fn.launches for k, fn in kernels.items()}
-        c.update({f"{k} repair": kernels[k].repair_launches
-                  for k in ("k3", "k4")})
+        c = {**launches(), **sk.launch_counts()}
         peak = torch.cuda.max_memory_allocated(dev) / 1e9
         out["peak_gb"][label] = peak
         log(f"  {label}: peak device memory {peak:.3f} GB")
@@ -2782,6 +2781,13 @@ def main():
         "k3": sk.fused_window_streamline_step,
         "k4": sk.fused_window_pathline_step, "k5": rg.row_gather_probe}
 
+    def launches():
+        """K1-K5's launch counts (stage_kernel.launch_counts without the
+        window kernels' repairs, and K5's)."""
+        counts = sk.launch_counts()
+        return {**{k: counts[k] for k in ("k1", "k2", "k3", "k4")},
+                "k5": rg.row_gather_probe.launches}
+
     def reset_counts():
         sk.reset_counts()
         rg.row_gather_probe.launches = 0
@@ -2898,12 +2904,10 @@ def main():
     reset_counts()
     probe, tab_a, ids_a = timed("prof_dma main path",
                                 lambda: prof_dma.main([]))
-    rows["k5"]["launches"] = rg.row_gather_probe.launches
-    if rows["k5"]["launches"] == 0 or sum(
-            fn.launches for fn in kernels.values()) \
-            != rows["k5"]["launches"]:
-        fail(f"launch counts of the probe's main path: "
-             f"{ {k: fn.launches for k, fn in kernels.items()} }")
+    counts = launches()
+    rows["k5"]["launches"] = counts["k5"]
+    if counts["k5"] == 0 or sum(counts.values()) != counts["k5"]:
+        fail(f"launch counts of the probe's main path: {counts}")
     vids_m, nv_m, _ = advect._gather_cell_vertices(
         meshes[f32], torch.as_tensor(cells, device=dev).clamp(min=0))
     k5_rows = {}
@@ -2999,8 +3003,8 @@ def main():
         raw_traj = timed(f"run_advection {label}", lambda: mtt.run_advection(
             mesh32, front, seeds, cells, run_cfg, back=back,
             use_window=windowed))
-        counts = {k: fn.launches for k, fn in kernels.items()}
-        repairs = kernels[key].repair_launches if windowed else 0
+        counts = launches()
+        repairs = sk.launch_counts()[f"{key} repair"] if windowed else 0
         rate = n * run_cfg.n_steps / times[f"run_advection {label}"]
         misses = 0 if raw_traj.window_misses is None \
             else int(raw_traj.window_misses.sum())
@@ -3220,13 +3224,13 @@ def main():
 
     # ---- phase 5: remap, the API and the CLI on the card ----------------
     remap_summary, api_summary = front_door(
-        dev, mesh_h, sols, seeds, cfg, pcfg, last_points, kernels,
+        dev, mesh_h, sols, seeds, cfg, pcfg, last_points, launches,
         reset_counts, timed, times, smi)
 
     # ---- phase 6: the multi-device engines on the card -------------------
     multi_summary = multi_device(
         dev, mesh_h, sols, seeds, cells, depths, cfg, pcfg, refs, summary,
-        kernels, reset_counts, timed, times, smi)
+        launches, reset_counts, timed, times, smi)
 
     # ---- phase 7: across processes, the agent and the frontend ----------
     t_phase7 = time.perf_counter()

@@ -33,7 +33,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import threading
-from typing import Optional
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -209,9 +209,11 @@ def advection_schedule(settings: TrajectorySettings, pathline: bool):
 def stage_alphas(alpha, dt: float, duration: int, real: torch.dtype):
     """(a1, a2, a4) of one pathline step in the run dtype: a1 = alpha,
     a2 = clip(a1 + dalpha/2, 0, 1), a4 = clip(a1 + dalpha, 0, 1) with the
-    signed dalpha = dt / duration (reference TBB kernel :1784-1819)."""
+    signed dalpha = dt / duration (reference TBB kernel :1784-1819).
+    ``alpha`` may be an array of steps' alphas: each of a1, a2 and a4 is
+    then an array, elementwise the same values."""
     t = np.float32 if real == torch.float32 else np.float64
-    a1 = t(alpha)
+    a1 = np.asarray(alpha).astype(t)[()]
     dalpha = t(dt) / t(duration)
     return (a1, np.clip(a1 + t(0.5) * dalpha, t(0), t(1)),
             np.clip(a1 + dalpha, t(0), t(1)))
@@ -245,6 +247,22 @@ def snapshot_tables(mesh: MPASMesh, front: SolutionFields,
     return table, table_b, n_attrs
 
 
+class StepOut(NamedTuple):
+    """One fused step's outputs, the same record in every form (the window
+    wrappers' order): ``layer`` (the layer at the start position),
+    ``miss`` and ``clamp`` None without a window, ``attr`` None but on a
+    pathline with attributes."""
+
+    new_pos: torch.Tensor
+    hvel: torch.Tensor
+    wvel: torch.Tensor
+    ok: torch.Tensor
+    layer: Optional[torch.Tensor] = None
+    miss: Optional[torch.Tensor] = None
+    clamp: Optional[torch.Tensor] = None
+    attr: Optional[torch.Tensor] = None
+
+
 @dataclasses.dataclass(frozen=True)
 class Stepper:
     """What a step needs besides the particles: one mesh's tables on one
@@ -252,7 +270,13 @@ class Stepper:
     settings.  ``n_window`` is the layer window's width, 0 for the
     full-column step; ``rise`` and ``rise_b`` are the window kernels'
     first rises of ``table`` and ``table_b`` (stage_kernel.table_rise; None
-    without a window or a back snapshot)."""
+    without a window or a back snapshot).  ``kernel`` is the step kernel
+    each step launches ("k1".."k4"; on CPU tensors its plain version stands
+    in), None for the plain step; ``step(pos, depth_neg, nv, vids, s,
+    alphas)`` runs that step with the tables and settings bound and
+    returns a StepOut (``s`` the window starts, ``alphas`` the step's entry
+    of ``alphas``).  ``alphas`` holds each step's stage alphas (a1, a2, a4)
+    in the run dtype on a pathline, None on a streamline."""
 
     mesh: MPASMesh
     reloc_xyz: torch.Tensor
@@ -261,16 +285,14 @@ class Stepper:
     n_layers: int
     n_attrs: int
     n_window: int
-    use_kernel: bool
-    exact_clamp: bool
-    euler: bool
+    kernel: Optional[str]
+    step: Callable[..., StepOut]
     freeze: bool
     dt: float
-    duration: int
     is_first: np.ndarray
     flags: np.ndarray
     slots: np.ndarray
-    alphas: np.ndarray
+    alphas: list
     rise: Optional[torch.Tensor] = None
     rise_b: Optional[torch.Tensor] = None
 
@@ -279,29 +301,71 @@ class Stepper:
         return self.table_b is not None
 
 
+def _step_form(use_kernel, exact_clamp, table, table_b, rise, rise_b,
+               n_layers, n_window, n_attrs, dt, euler):
+    """(kernel, step) of make_stepper: the step's form, picked once; each
+    step calls its wrapper or plain version by its module name."""
+    L, W, A, tb = n_layers, n_window, n_attrs, table_b
+    if W and tb is None:
+        return "k3", lambda pos, dn, nv, vids, s, alphas: StepOut(
+            *fused_window_streamline_step(pos, dn, nv, vids, s, table, rise,
+                                          L, W, dt, euler))
+    if W:
+        return "k4", lambda pos, dn, nv, vids, s, alphas: StepOut(
+            *fused_window_pathline_step(pos, dn, nv, vids, s, table, tb, rise,
+                                        rise_b, L, W, dt, alphas, euler, A))
+    if tb is None and use_kernel:
+        return "k1", lambda pos, dn, nv, vids, s, alphas: StepOut(
+            *fused_streamline_step(pos, dn, nv, vids, table, L, dt, euler))
+    if tb is None:
+        return None, lambda pos, dn, nv, vids, s, alphas: StepOut(
+            *fused_streamline_step_plain(pos, dn, nv, vids, table, L, dt,
+                                         euler, exact_clamp))
+
+    def k2(pos, dn, nv, vids, s, alphas):
+        *out, attr = fused_pathline_step(pos, dn, nv, vids, table, tb, L, dt,
+                                         alphas, euler, A)
+        return StepOut(*out, attr=attr)
+
+    def plain(pos, dn, nv, vids, s, alphas):
+        *out, attr = fused_pathline_step_plain(pos, dn, nv, vids, table, tb, L,
+                                               dt, alphas, euler, A,
+                                               exact_clamp)
+        return StepOut(*out, attr=attr)
+    return ("k2", k2) if use_kernel else (None, plain)
+
+
 def make_stepper(mesh: MPASMesh, table, table_b, n_attrs: int,
                  settings: TrajectorySettings, use_kernel: bool = True,
                  exact_clamp: bool = True, n_window: int = 0) -> Stepper:
     """A Stepper over ``mesh`` and packed tables already on one device in
-    the run dtype; with a window, each table's first rises are computed
-    here, once."""
+    the run dtype: the step's form (K1-K4 by the back table and the
+    window, or the plain step without ``use_kernel``) picked here, and the
+    schedule's stage alphas and, with a window, each table's first rises
+    computed here, once."""
     if use_kernel and not exact_clamp:
         raise ValueError("the fused step kernel implements the sequential "
                          "(exact) ztop clamp only")
+    if n_window and not use_kernel:
+        raise ValueError("the layer window is a kernel path")
     pathline = table_b is not None
     is_first, flags, slots, alphas, dt = advection_schedule(settings, pathline)
+    stage = list(zip(*stage_alphas(alphas, dt,
+                                   int(settings.simulation_duration),
+                                   table.dtype))) if pathline \
+        else [None] * len(alphas)
     n_layers = (table.shape[1] - 4) // (5 + n_attrs)
-    rise = lambda t: None if not n_window or t is None \
-        else table_rise(t, n_layers)
+    rise, rise_b = (None if not n_window or t is None
+                    else table_rise(t, n_layers) for t in (table, table_b))
+    euler = settings.method == CalcMethod.EULER
+    kernel, step = _step_form(use_kernel, exact_clamp, table, table_b, rise,
+                              rise_b, n_layers, n_window, n_attrs, dt, euler)
     return Stepper(mesh=mesh, reloc_xyz=build_reloc_xyz(mesh), table=table,
                    table_b=table_b, n_layers=n_layers, n_attrs=n_attrs,
-                   n_window=n_window, use_kernel=use_kernel,
-                   exact_clamp=exact_clamp,
-                   euler=settings.method == CalcMethod.EULER,
+                   n_window=n_window, kernel=kernel, step=step,
                    freeze=settings.fail_mode == FailMode.FREEZE, dt=dt,
-                   duration=int(settings.simulation_duration),
-                   is_first=is_first, flags=flags, slots=slots, alphas=alphas,
-                   rise=rise(table), rise_b=rise(table_b))
+                   is_first=is_first, flags=flags, slots=slots, alphas=stage,
+                   rise=rise, rise_b=rise_b)
 
 
 @dataclasses.dataclass
@@ -465,48 +529,22 @@ def _phases(st: Stepper, p: Particles, i: int):
         cell = torch.where(alive, new_cell, cell)
     yield None
     vids, nv, vids_ok = _gather_cell_vertices(st.mesh, cell)
-    alphas = stage_alphas(st.alphas[i], dt, st.duration, real) \
-        if st.pathline else None
-    s = window_starts(p.layer, st.n_layers, st.n_window) if st.n_window \
-        else None
+    s = None if p.layer is None \
+        else window_starts(p.layer, st.n_layers, st.n_window)
     yield None
-    if st.n_window:
-        if st.pathline:
-            np_k, hv_k, wv_k, ok_k, layer_k, miss, clamp, at_k = \
-                fused_window_pathline_step(
-                    pos, depth_neg, nv, vids, s, st.table, st.table_b,
-                    st.rise, st.rise_b, st.n_layers, st.n_window, dt, alphas,
-                    euler=st.euler, n_attrs=st.n_attrs)
-        else:
-            np_k, hv_k, wv_k, ok_k, layer_k, miss, clamp = \
-                fused_window_streamline_step(
-                    pos, depth_neg, nv, vids, s, st.table, st.rise,
-                    st.n_layers, st.n_window, dt, euler=st.euler)
-            at_k = None
-    elif st.pathline:
-        pstep = fused_pathline_step if st.use_kernel else functools.partial(
-            fused_pathline_step_plain, exact_clamp=st.exact_clamp)
-        np_k, hv_k, wv_k, ok_k, at_k = pstep(
-            pos, depth_neg, nv, vids, st.table, st.table_b, st.n_layers, dt,
-            alphas, euler=st.euler, n_attrs=st.n_attrs)
-    else:
-        step = fused_streamline_step if st.use_kernel else functools.partial(
-            fused_streamline_step_plain, exact_clamp=st.exact_clamp)
-        np_k, hv_k, wv_k, ok_k = step(pos, depth_neg, nv, vids, st.table,
-                                      st.n_layers, dt, euler=st.euler)
-        at_k = None
+    out = st.step(pos, depth_neg, nv, vids, s, st.alphas[i])
     yield None
-    if st.n_window:
-        p.layer = torch.where(alive, layer_k, p.layer)
+    if out.layer is not None:
+        p.layer = torch.where(alive, out.layer, p.layer)
         counted = alive & vids_ok
-        p.misses += (miss & counted).to(torch.int32)
-        p.clamp_misses += (clamp & counted).to(torch.int32)
+        p.misses += (out.miss & counted).to(torch.int32)
+        p.clamp_misses += (out.clamp & counted).to(torch.int32)
     # invalid vertex ids (reference R_VLA_FAIL) are checked outside the
     # step: zero the velocities and attributes and keep the position
-    step_ok = ok_k & vids_ok
-    hvel = _where0(vids_ok[:, None], hv_k)
-    wvel = _where0(vids_ok, wv_k)
-    new_pos = torch.where(vids_ok[:, None], np_k, pos)
+    step_ok = out.ok & vids_ok
+    hvel = _where0(vids_ok[:, None], out.hvel)
+    wvel = _where0(vids_ok, out.wvel)
+    new_pos = torch.where(vids_ok[:, None], out.new_pos, pos)
 
     write_ok = (alive & step_ok) if st.freeze else alive
 
@@ -524,8 +562,8 @@ def _phases(st: Stepper, p: Particles, i: int):
     p.depth = torch.where(write_ok, new_depth.to(depth.dtype), depth)
     p.cell, p.alive = cell, write_ok
     records = [(p.vels, hvel)]
-    if at_k is not None:
-        records.append((p.attrs, _where0(vids_ok[:, None], at_k)))
+    if out.attr is not None:
+        records.append((p.attrs, _where0(vids_ok[:, None], out.attr)))
     yield records
 
 
@@ -706,7 +744,7 @@ def resolve_graph(graph: Optional[bool], st: Stepper, devices) -> bool:
     alphas reach the kernels by value, so a replay would repeat one
     step's), on several devices or on the plain path; False keeps the
     eager loop."""
-    fits = st.use_kernel and not st.pathline and len(devices) == 1
+    fits = st.kernel in ("k1", "k3") and len(devices) == 1
     if graph is None:
         return fits and devices[0].type == "cuda"
     if graph and not fits:
@@ -716,24 +754,20 @@ def resolve_graph(graph: Optional[bool], st: Stepper, devices) -> bool:
 
 
 def resolve_window(use_kernel: bool, use_window: Optional[bool],
-                   device: torch.device, n_layers: int,
-                   window: Optional[int] = None) -> int:
+                   device: torch.device, n_layers: int) -> int:
     """The layer window's width for a run, 0 for the full-column step:
     ``use_window`` None turns the window on for a kernel run on a CUDA
     device with L > 2 (mops_tpu turns it on for compiled TPU runs); the
-    width is min(L, max(4, ``window``)), ``window`` None taking
-    WINDOW_LAYERS."""
+    width is min(L, max(4, WINDOW_LAYERS))."""
     windowed = use_kernel and (device.type == "cuda" and n_layers > 2
                                if use_window is None else bool(use_window))
-    window = WINDOW_LAYERS if window is None else int(window)
-    return min(n_layers, max(4, window)) if windowed else 0
+    return min(n_layers, max(4, WINDOW_LAYERS)) if windowed else 0
 
 
 def prepare(mesh: MPASMesh, front: SolutionFields,
             back: Optional[SolutionFields], settings: TrajectorySettings,
             real: torch.dtype, device, use_kernel: bool = True,
-            exact_clamp: bool = True, use_window: Optional[bool] = None,
-            window: Optional[int] = None):
+            exact_clamp: bool = True, use_window: Optional[bool] = None):
     """(Stepper, snapshots) of a run on ``device``: the mesh and the
     snapshots moved there in ``real`` (no-ops when they agree), their
     tables packed once, the window as resolve_window decides; snapshots is
@@ -744,7 +778,7 @@ def prepare(mesh: MPASMesh, front: SolutionFields,
     st = make_stepper(mesh_d, *snapshot_tables(mesh_d, *sols), settings,
                       use_kernel, exact_clamp, resolve_window(
                           use_kernel, use_window, device,
-                          front.vertex_ztop.shape[1], window))
+                          front.vertex_ztop.shape[1]))
     return st, sols
 
 
@@ -763,15 +797,11 @@ def start_particles(st: Stepper, sols, seeds, cells, depths,
 
 def resolve_path(st: Stepper) -> dict:
     """LAST_RESOLVED's record of a run through ``st``."""
-    kernel = None
-    if st.use_kernel:
-        kernel = ("k4" if st.pathline else "k3") if st.n_window \
-            else ("k2" if st.pathline else "k1")
-    return {"kernel": kernel, "window": bool(st.n_window),
+    return {"kernel": st.kernel, "window": bool(st.n_window),
             "n_window": st.n_window, "pathline": st.pathline,
             "n_attrs": st.n_attrs,
             "dtype": str(st.table.dtype).removeprefix("torch."),
-            "instance": column_instance(st.n_layers) if st.use_kernel
+            "instance": column_instance(st.n_layers) if st.kernel
             else None}
 
 
@@ -805,7 +835,6 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
                   use_kernel: bool = True,
                   device="cuda",
                   use_window: Optional[bool] = None,
-                  window: Optional[int] = None,
                   chunk: Optional[int] = None,
                   devices=None, group=None,
                   graph: Optional[bool] = None) -> RawTrajectories:
@@ -830,8 +859,8 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
     sequential clamp only, so they require ``exact_clamp``.
 
     ``use_window`` routes the kernel path through the layer-window kernels
-    (fused_window_*_step) with windows of min(L, max(4, ``window``))
-    layers (``window`` None: WINDOW_LAYERS); None turns it on for a CUDA
+    (fused_window_*_step) with windows of min(L, max(4, WINDOW_LAYERS))
+    layers; None turns it on for a CUDA
     run with L > 2 (mops_tpu turns it on for compiled TPU runs), False
     keeps the full-column kernels.
 
@@ -894,7 +923,7 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
     # mesh + solution tables on each distinct device in the particle dtype
     with timer("advect.prepare", "Preprocessing"):
         steppers = {dev: prepare(mesh, front, back, settings, real, dev,
-                                 use_kernel, exact_clamp, use_window, window)
+                                 use_kernel, exact_clamp, use_window)
                     for dev in dict.fromkeys(devices)}
     graphed = resolve_graph(graph, steppers[devices[0]][0], devices) \
         and n > 0

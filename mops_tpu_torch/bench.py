@@ -47,7 +47,7 @@ stderr: the run's shape, elapsed seconds and window-miss rate; the gate's
 shares and tie flips (``--trace``: every off lane classified, gate's
 ``trace``); a roofline line (on the card only): the step's least bytes
 (advect.step_cost at the run's start inputs, counted after the timed run)
-times steps a second against the rate of a torch copy.
+times steps a second against HBM_PEAK.
 """
 
 from __future__ import annotations
@@ -65,7 +65,6 @@ import torch
 
 from . import advect, synth
 from .cellsearch import CellSearch
-from .kernels import stage_kernel as sk
 from .config import EARTH_RADIUS
 from .mesh import resolve_device
 from .seeding import linear_depth_profile
@@ -74,6 +73,9 @@ from .solution import preprocess
 
 # Steps the gate runs.
 GATE_STEPS = 20
+# The roofline line's memory rate: one H100 SXM's HBM3 peak, 3.35 TB/s
+# (NVIDIA's data sheet), bytes a second.
+HBM_PEAK = 3.35e12
 # The least share of lanes within tolerance, by run dtype.  float32: set
 # from the share measured between the f32 kernel path and the f32 plain path
 # on the card at 20k, 100k, 500k and 1M cells (PERF.md, the gate curve):
@@ -204,7 +206,8 @@ def gate(mesh, front, seeds, cells, settings: TrajectorySettings,
         record_t=settings.delta_t * GATE_STEPS, particle_depths=depths)
     st_k, sols = advect.prepare(mesh, front, back, cfg, dtype, dev,
                                 use_window=use_window)
-    st_p = dataclasses.replace(st_k, use_kernel=False, n_window=0)
+    st_p = advect.make_stepper(st_k.mesh, st_k.table, st_k.table_b,
+                               st_k.n_attrs, cfg, use_kernel=False)
     pk = advect.start_particles(st_k, sols, seeds, cells, depths,
                                 cfg.n_records)
     pp = advect.start_particles(st_p, sols, seeds, cells, depths,
@@ -217,6 +220,9 @@ def gate(mesh, front, seeds, cells, settings: TrajectorySettings,
     relocated = torch.zeros_like(parted)
     gap = torch.full((n,), float("inf"), dtype=torch.float64, device=dev)
     if trace:
+        # the full-column kernel step (K1 or K2) that replay holds to st_p's
+        st_f = advect.make_stepper(st_k.mesh, st_k.table, st_k.table_b,
+                                   st_k.n_attrs, cfg)
         # 2: parted in the same cell, one path stalled; 3: both moved
         kind = torch.zeros(n, dtype=torch.int8, device=dev)
         pre_gap = torch.full_like(gap, float("nan"))
@@ -244,8 +250,8 @@ def gate(mesh, front, seeds, cells, settings: TrajectorySettings,
                     (pk.pos[idx].double() - before_k[idx]).norm(dim=1),
                     (pp.pos[idx].double() - before[idx]).norm(dim=1)) < 1.0
                 kind[idx] = torch.where(stalled, 2, 3).to(torch.int8)
-                agree[idx] = replay(st_k, state[0][idx], state[1][idx],
-                                    pp.cell[idx], i)
+                agree[idx] = replay(st_f, st_p, state[0][idx],
+                                    state[1][idx], pp.cell[idx], i)
             pre_gap = torch.where(new, (before - before_k).norm(dim=1),
                                   pre_gap)
     attrs = st_k.pathline and st_k.n_attrs > 0
@@ -269,25 +275,19 @@ def gate(mesh, front, seeds, cells, settings: TrajectorySettings,
     return res
 
 
-def replay(st: advect.Stepper, pos, depth, cell, i: int) -> torch.Tensor:
-    """Whether step ``i``'s full-column fused step (K1, or K2 at the step's
-    alphas) and its plain version agree on these particle states: ok equal
-    and new positions within TIE_GAP_M (lanes (N,) bool)."""
-    vids, nv, _ = advect._gather_cell_vertices(st.mesh, cell)
-    args = (pos.contiguous(), (-depth).to(pos.dtype).contiguous(), nv, vids)
-    if st.pathline:
-        alphas = advect.stage_alphas(st.alphas[i], st.dt, st.duration,
-                                     pos.dtype)
-        rest = (st.table, st.table_b, st.n_layers, st.dt, alphas)
-        kw = dict(euler=st.euler, n_attrs=st.n_attrs)
-        got = sk.fused_pathline_step(*args, *rest, **kw)
-        want = sk.fused_pathline_step_plain(*args, *rest, **kw)
-    else:
-        rest = (st.table, st.n_layers, st.dt)
-        got = sk.fused_streamline_step(*args, *rest, euler=st.euler)
-        want = sk.fused_streamline_step_plain(*args, *rest, euler=st.euler)
-    return (got[3] == want[3]) & (
-        (got[0].double() - want[0].double()).norm(dim=1) <= TIE_GAP_M)
+def replay(kernel: advect.Stepper, plain: advect.Stepper, pos, depth, cell,
+           i: int) -> torch.Tensor:
+    """Whether step ``i`` of the full-column kernel stepper ``kernel`` (K1,
+    or K2 at the step's alphas) and of its plain version ``plain`` agree on
+    these particle states: ok equal and new positions within TIE_GAP_M
+    (lanes (N,) bool)."""
+    vids, nv, _ = advect._gather_cell_vertices(plain.mesh, cell)
+    args = (pos.contiguous(), (-depth).to(pos.dtype).contiguous(), nv, vids,
+            None, plain.alphas[i])
+    got, want = kernel.step(*args), plain.step(*args)
+    return (got.ok == want.ok) & ((got.new_pos.double()
+                                   - want.new_pos.double()).norm(dim=1)
+                                  <= TIE_GAP_M)
 
 
 def gate_line(res: dict) -> str:
@@ -307,19 +307,6 @@ def gate_line(res: dict) -> str:
             f"(min {res['share_min']}){attr} off={res['off']}{kinds} "
             f"tol={res['tol_m']:.1f}m disp_plain={res['disp_plain_m']:.1f}m "
             f"disp_kernel={res['disp_kernel_m']:.1f}m -> {res['verified']}")
-
-
-def copy_rate(dev: torch.device) -> float:
-    """Bytes a second of a torch copy (x + 1 over 1 GiB of float32, read
-    and written), the practical memory rate of the card."""
-    big = torch.zeros((256, 1 << 20), dtype=torch.float32, device=dev)
-    out = big + 1.0
-    torch.cuda.synchronize(dev)
-    t0 = time.perf_counter()
-    for _ in range(5):
-        out = out + 1.0
-    torch.cuda.synchronize(dev)
-    return 2 * big.nbytes / ((time.perf_counter() - t0) / 5)
 
 
 def main(argv=None) -> dict:
@@ -389,7 +376,6 @@ def main(argv=None) -> dict:
           f"miss_rate={misses / (n_particles * n_steps):.2e}/particle-step",
           file=sys.stderr)
     if dev.type == "cuda":
-        peak = copy_rate(dev)
         step_bytes, _ = advect.step_cost(
             mesh, [sol], seeds, cells, cfg.effective_depths(n_particles),
             path["n_attrs"], path["n_window"])
@@ -397,8 +383,8 @@ def main(argv=None) -> dict:
         print(f"# roofline: kernel={path['kernel']} window={path['window']} "
               f"instance={path['instance']} step_bytes={step_bytes}B "
               f"traffic~{traffic / 1e9:.1f}GB/s "
-              f"copy-peak~{peak / 1e9:.0f}GB/s "
-              f"({100 * traffic / peak:.2f}% of the copy rate)",
+              f"({100 * traffic / HBM_PEAK:.2f}% of the HBM peak "
+              f"{HBM_PEAK / 1e12:.2f}TB/s)",
               file=sys.stderr)
     else:
         print("# roofline: not measured (no card)", file=sys.stderr)

@@ -21,10 +21,8 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
-import functools
 import threading
 from pathlib import Path
-from typing import Optional
 
 import torch
 
@@ -91,29 +89,27 @@ def build() -> Path:
     return path
 
 
+# Each C entry's parameters in order (P a pointer, I an int, R the real of
+# its _f32 or _f64 instance); every entry returns cudaGetLastError().
+_ENTRIES = {
+    "streamline_step": "PPPPP IIII R I PPPPPPPP",
+    "pathline_step": "PPPPPP IIIII RRRR I PPPPPPPPP",
+    "window_streamline_step": "PPPPPPP IIIII R I PPPPPPPPPP",
+    "window_pathline_step": "PPPPPPPPP IIIIII RRRR I PPPPPPPPPPP",
+}
+
+
 def _library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         P, I = ctypes.c_void_p, ctypes.c_int
         for tag, real in (("f32", ctypes.c_float), ("f64", ctypes.c_double)):
-            fn = getattr(lib, f"streamline_step_{tag}")
-            fn.argtypes = [P, P, P, P, P, I, I, I, I, real, I, P, P, P, P, P,
-                           P, P, P]
-            fn.restype = I
-            fn = getattr(lib, f"pathline_step_{tag}")
-            fn.argtypes = [P, P, P, P, P, P, I, I, I, I, I, real, real, real,
-                           real, I, P, P, P, P, P, P, P, P, P]
-            fn.restype = I
-            fn = getattr(lib, f"window_streamline_step_{tag}")
-            fn.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, real, I, P, P,
-                           P, P, P, P, P, P, P, P]
-            fn.restype = I
-            fn = getattr(lib, f"window_pathline_step_{tag}")
-            fn.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, real,
-                           real, real, real, I, P, P, P, P, P, P, P, P, P, P,
-                           P]
-            fn.restype = I
+            types = {"P": P, "I": I, "R": real}
+            for entry, codes in _ENTRIES.items():
+                fn = getattr(lib, f"{entry}_{tag}")
+                fn.argtypes = [types[c] for c in codes.replace(" ", "")]
+                fn.restype = I
         for name in ("stage_kernel_k_max", "stage_kernel_l_max",
                      "stage_kernel_a_max", "stage_kernel_w_max"):
             getattr(lib, name).argtypes = []
@@ -130,9 +126,14 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
-def _check(name, pos, depth_neg, nv, vids, tables, F):
-    """Device, dtype, shape and contiguity checks shared by both wrappers;
-    returns (N, K)."""
+def _check(name, pos, depth_neg, nv, vids, tables, n_layers, n_attrs,
+           window=None):
+    """Device, dtype, shape and contiguity checks of a wrapper's inputs,
+    and with ``window`` = (s, rises, W) of the window starts and width and
+    of each table's first rises (table_rise); returns (N, K, F)."""
+    if not 0 <= n_attrs <= A_MAX:
+        raise ValueError(f"{name}: n_attrs={n_attrs} outside 0..{A_MAX}")
+    F = table_width(n_layers, n_attrs)
     n, K = vids.shape
     real = pos.dtype
     if real not in (torch.float32, torch.float64):
@@ -156,16 +157,23 @@ def _check(name, pos, depth_neg, nv, vids, tables, F):
         raise ValueError(f"{name}: tensors on {devices}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
-    return n, K
-
-
-def _kernel_device(name, pos, K, n_layers):
-    """Raise unless ``pos`` is a CUDA tensor within the kernels' ceilings."""
-    if pos.device.type != "cuda":
-        raise ValueError(f"{name}: no kernel for {pos.device}")
-    if K > K_MAX or n_layers > L_MAX or n_layers < 2:
-        raise ValueError(f"{name}: K={K}, L={n_layers} outside the kernel's "
-                         f"ceilings K <= {K_MAX}, 2 <= L <= {L_MAX}")
+    if window is None:
+        return n, K, F
+    s, rises, n_window = window
+    device = pos.device
+    if tuple(s.shape) != (n,) or s.dtype != torch.int32 \
+            or not s.is_contiguous() or s.device != device:
+        raise ValueError(f"{name}: s must be a contiguous (N,) int32 tensor "
+                         f"on {device}")
+    for t, r in zip(tables, rises):
+        if tuple(r.shape) != (t.shape[0],) or r.dtype != torch.int32 \
+                or not r.is_contiguous() or r.device != device:
+            raise ValueError(f"{name}: each table's rise must be a "
+                             f"contiguous (nV,) int32 tensor on {device}")
+    if not 2 <= n_window <= min(n_layers, W_MAX):
+        raise ValueError(f"{name}: window W={n_window} outside 2 <= W <= "
+                         f"min(L={n_layers}, {W_MAX})")
+    return n, K, F
 
 
 def _raise_on(name, err):
@@ -184,7 +192,10 @@ F64_LAUNCHES = "kernels.f64_launches."
 _held = threading.local()
 
 
-def _launched(key: str, real: torch.dtype) -> None:
+def count_launch(key: str, real: torch.dtype) -> None:
+    """Count one launch of the step kernel ``key`` (COUNT_KEYS) of dtype
+    ``real``: in the recorder, or in held_counts' tally inside one.  The
+    one place a launch is counted; a stand-in for a wrapper counts here."""
     names = [LAUNCHES + key]
     if real == torch.float64:
         names.append(F64_LAUNCHES + key)
@@ -217,42 +228,97 @@ def count_launches(tally: dict, times: int) -> None:
         mgr.add(name, n * times)
 
 
-def _count(attr: str):
-    """A wrapper's ``launches`` or ``repair_launches``: its key's counter
-    in the recorder; set only to 0, which resets it."""
-    def get(self):
-        key = self._keys[attr]
-        if key is None:
-            raise AttributeError(attr)
-        return TimerManager.instance().counter(LAUNCHES + key)
-
-    def put(self, value):
-        if value != 0:
-            raise ValueError(f"{attr} can only be reset to 0")
-        TimerManager.instance().reset_counter(LAUNCHES + self._keys[attr])
-    return property(get, put)
+# The step kernels' launch counters: K1-K4 and the window paths' masked
+# K1/K2 repairs.
+COUNT_KEYS = ("k1", "k2", "k3", "k3 repair", "k4", "k4 repair")
 
 
-class _Counted:
-    """A step wrapper whose ``launches`` (and ``repair_launches``, for a
-    window kernel and its masked repair) read the recorder's counters."""
-
-    launches = _count("launches")
-    repair_launches = _count("repair_launches")
-
-    def __init__(self, fn, key: str, repair: Optional[str] = None):
-        functools.update_wrapper(self, fn)
-        self._keys = {"launches": key, "repair_launches": repair}
-
-    def __call__(self, *args, **kwargs):
-        return self.__wrapped__(*args, **kwargs)
+def launch_counts() -> dict:
+    """The step kernels' launch counts (the recorder's counters
+    kernels.launches.<key>), keyed as COUNT_KEYS.  The K1/K2 instance a
+    count launched is column_instance(L) of its run."""
+    mgr = TimerManager.instance()
+    return {key: mgr.counter(LAUNCHES + key) for key in COUNT_KEYS}
 
 
-def _counted(key: str, repair: Optional[str] = None):
-    return lambda fn: _Counted(fn, key, repair)
+def reset_counts():
+    """Every step kernel's launch count, and its double instance's, to 0."""
+    mgr = TimerManager.instance()
+    for key in COUNT_KEYS:
+        mgr.reset_counter(LAUNCHES + key)
+        mgr.reset_counter(F64_LAUNCHES + key)
 
 
-@_counted("k1")
+# Each wrapper's name (in its errors) and C entry, by kernel key.
+_WRAPPERS = {"k1": ("fused_streamline_step", "streamline_step"),
+             "k2": ("fused_pathline_step", "pathline_step"),
+             "k3": ("fused_window_streamline_step", "window_streamline_step"),
+             "k4": ("fused_window_pathline_step", "window_pathline_step")}
+
+
+def _ptrs(tensors):
+    return [None if t is None else t.data_ptr() for t in tensors]
+
+
+def _launch(key, plain, pos, depth_neg, nv, vids, tables, n_layers, dt,
+            euler, alphas=(), n_attrs=0, window=None):
+    """The body of the four step wrappers: check the inputs, return
+    ``plain()`` for CPU tensors, else launch kernel ``key`` on the current
+    stream and count it; a window kernel (``window`` = (s, rises, W))
+    appends its miss lanes to a list, and the full-column kernel of its
+    form (K1 or K2) then steps that list on the same stream.  One packed
+    table is a streamline, two a pathline with ``alphas`` (a1, a2, a4).
+    Returns (new_pos, hvel, wvel, ok), then (layer, miss, clamp) with a
+    window, then attr (or None) on a pathline."""
+    name, entry = _WRAPPERS[key]
+    n, K, F = _check(name, pos, depth_neg, nv, vids, tables, n_layers,
+                     n_attrs, window)
+    if pos.device.type == "cpu":
+        return plain()
+    if pos.device.type != "cuda":
+        raise ValueError(f"{name}: no kernel for {pos.device}")
+    if K > K_MAX or n_layers > L_MAX or n_layers < 2:
+        raise ValueError(f"{name}: K={K}, L={n_layers} outside the kernel's "
+                         f"ceilings K <= {K_MAX}, 2 <= L <= {L_MAX}")
+    real, dev = pos.dtype, pos.device
+    pathline = len(tables) == 2
+    flag = lambda: torch.empty(n, dtype=torch.bool, device=dev)
+    ints = lambda k: torch.empty(k, dtype=torch.int32, device=dev)
+    step = [torch.empty_like(pos), torch.empty_like(pos),
+            torch.empty_like(depth_neg), flag()]
+    attr = [torch.empty_like(pos) if n_attrs else None] if pathline else []
+    sizes = [n, K, F, n_layers]
+    scalars = ([n_attrs] if pathline else []) + [float(dt)] + [
+        float(a) for a in alphas] + [int(bool(euler))]
+    lib = _library()
+    tag = "_f32" if real == torch.float32 else "_f64"
+    full = getattr(lib, ("pathline" if pathline else "streamline")
+                   + "_step" + tag)
+    head = _ptrs([pos, depth_neg, nv, vids])
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if window is None:
+            _raise_on(name, full(*head, *_ptrs(tables), *sizes, *scalars,
+                                 *_ptrs(step + attr), None, None, None,
+                                 stream))
+            count_launch(key, real)
+            return (*step, *attr)
+        s, rises, n_window = window
+        found = [ints(n), flag(), flag()]            # layer, miss, clamp
+        lst, cnt = ints(n), ints(1)
+        _raise_on(name, getattr(lib, entry + tag)(
+            *head, s.data_ptr(), *_ptrs(tables), *_ptrs(rises), *sizes,
+            n_window, *scalars, *_ptrs(step + found + [lst, cnt] + attr),
+            stream))
+        count_launch(key, real)
+        # the miss lanes' full-column step over their list
+        _raise_on(f"{name} (repair)", full(
+            *head, *_ptrs(tables), *sizes, *scalars,
+            *_ptrs(step + attr + [lst, cnt, found[0]]), stream))
+        count_launch(f"{key} repair", real)
+    return (*step, *found, *attr)
+
+
 def fused_streamline_step(pos, depth_neg, nv, vids, table, n_layers: int,
                           dt: float, euler: bool = False):
     """One fused streamline step (RK4, or Euler) for every particle.
@@ -264,34 +330,12 @@ def fused_streamline_step(pos, depth_neg, nv, vids, table, n_layers: int,
       n_layers L, dt signed seconds.
     Returns (new_pos (N, 3), hvel (N, 3), wvel (N,), ok (N,) bool).
 
-    CUDA tensors launch the kernel (and count the launch, read by
-    ``fused_streamline_step.launches``); CPU tensors run
-    ``fused_streamline_step_plain``.
+    CUDA tensors launch the kernel (counted under "k1", launch_counts);
+    CPU tensors run ``fused_streamline_step_plain``.
     """
-    name = "fused_streamline_step"
-    F = table_width(n_layers)
-    n, K = _check(name, pos, depth_neg, nv, vids, (table,), F)
-    if pos.device.type == "cpu":
-        return fused_streamline_step_plain(pos, depth_neg, nv, vids, table,
-                                           n_layers, dt, euler)
-    _kernel_device(name, pos, K, n_layers)
-    new_pos = torch.empty_like(pos)
-    hvel = torch.empty_like(pos)
-    wvel = torch.empty_like(depth_neg)
-    ok = torch.empty(n, dtype=torch.bool, device=pos.device)
-    lib = _library()
-    fn = lib.streamline_step_f32 if pos.dtype == torch.float32 \
-        else lib.streamline_step_f64
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
-                 vids.data_ptr(), table.data_ptr(), n, K, F, n_layers, float(dt),
-                 int(bool(euler)), new_pos.data_ptr(), hvel.data_ptr(),
-                 wvel.data_ptr(), ok.data_ptr(), None, None, None, stream)
-    _raise_on(name, err)
-    _launched("k1", pos.dtype)
-    return new_pos, hvel, wvel, ok
-
+    return _launch("k1", lambda: fused_streamline_step_plain(
+        pos, depth_neg, nv, vids, table, n_layers, dt, euler),
+        pos, depth_neg, nv, vids, (table,), n_layers, dt, euler)
 
 
 def fused_streamline_step_plain(pos, depth_neg, nv, vids, table,
@@ -307,7 +351,6 @@ def fused_streamline_step_plain(pos, depth_neg, nv, vids, table,
                            euler, exact_clamp)
 
 
-@_counted("k2")
 def fused_pathline_step(pos, depth_neg, nv, vids, table_f, table_b,
                         n_layers: int, dt: float, alphas, euler: bool = False,
                         n_attrs: int = 0):
@@ -321,42 +364,14 @@ def fused_pathline_step(pos, depth_neg, nv, vids, table_f, table_b,
     Returns (new_pos (N, 3), hvel (N, 3), wvel (N,), ok (N,) bool,
     attr (N, 3) with slots >= n_attrs zero, or None when n_attrs == 0).
 
-    CUDA tensors launch the kernel (and count the launch, read by
-    ``fused_pathline_step.launches``); CPU tensors run
-    ``fused_pathline_step_plain``.
+    CUDA tensors launch the kernel (counted under "k2", launch_counts);
+    CPU tensors run ``fused_pathline_step_plain``.
     """
-    name = "fused_pathline_step"
-    if not 0 <= n_attrs <= A_MAX:
-        raise ValueError(f"{name}: n_attrs={n_attrs} outside 0..{A_MAX}")
-    F = table_width(n_layers, n_attrs)
-    n, K = _check(name, pos, depth_neg, nv, vids, (table_f, table_b), F)
-    if pos.device.type == "cpu":
-        return fused_pathline_step_plain(pos, depth_neg, nv, vids, table_f,
-                                         table_b, n_layers, dt, alphas, euler,
-                                         n_attrs)
-    _kernel_device(name, pos, K, n_layers)
-    new_pos = torch.empty_like(pos)
-    hvel = torch.empty_like(pos)
-    wvel = torch.empty_like(depth_neg)
-    ok = torch.empty(n, dtype=torch.bool, device=pos.device)
-    attr = torch.empty_like(pos) if n_attrs else None
-    lib = _library()
-    fn = lib.pathline_step_f32 if pos.dtype == torch.float32 \
-        else lib.pathline_step_f64
-    a1, a2, a4 = (float(a) for a in alphas)
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
-                 vids.data_ptr(), table_f.data_ptr(), table_b.data_ptr(), n, K,
-                 F, n_layers, n_attrs, float(dt), a1, a2, a4,
-                 int(bool(euler)), new_pos.data_ptr(), hvel.data_ptr(),
-                 wvel.data_ptr(), ok.data_ptr(),
-                 None if attr is None else attr.data_ptr(), None, None, None,
-                 stream)
-    _raise_on(name, err)
-    _launched("k2", pos.dtype)
-    return new_pos, hvel, wvel, ok, attr
-
+    return _launch("k2", lambda: fused_pathline_step_plain(
+        pos, depth_neg, nv, vids, table_f, table_b, n_layers, dt, alphas,
+        euler, n_attrs),
+        pos, depth_neg, nv, vids, (table_f, table_b), n_layers, dt, euler,
+        alphas, n_attrs)
 
 
 def layout(entry: str, n_vertices: int, n_layers: int,
@@ -414,37 +429,6 @@ def table_rise(table: torch.Tensor, n_layers: int) -> torch.Tensor:
     return first_rise(table[:, 3:3 + n_layers]).contiguous()
 
 
-def _check_window(name, s, n, n_layers, n_window, device, tables, rises):
-    """Checks of the window starts and width, and of each table's first
-    rises (table_rise), shared by K3 and K4."""
-    if tuple(s.shape) != (n,) or s.dtype != torch.int32 \
-            or not s.is_contiguous() or s.device != device:
-        raise ValueError(f"{name}: s must be a contiguous (N,) int32 tensor "
-                         f"on {device}")
-    for t, r in zip(tables, rises):
-        if tuple(r.shape) != (t.shape[0],) or r.dtype != torch.int32 \
-                or not r.is_contiguous() or r.device != device:
-            raise ValueError(f"{name}: each table's rise must be a "
-                             f"contiguous (nV,) int32 tensor on {device}")
-    if not 2 <= n_window <= min(n_layers, W_MAX):
-        raise ValueError(f"{name}: window W={n_window} outside 2 <= W <= "
-                         f"min(L={n_layers}, {W_MAX})")
-
-
-def _window_outputs(pos, depth_neg, n_attrs=0):
-    """(new_pos, hvel, wvel, ok, layer, miss, clamp, attr or None), and the
-    (list, count) buffers of the miss lanes that the window kernel appends
-    and its repair steps."""
-    n = pos.shape[0]
-    dev = pos.device
-    flag = lambda: torch.empty(n, dtype=torch.bool, device=dev)
-    ints = lambda k: torch.empty(k, dtype=torch.int32, device=dev)
-    return (torch.empty_like(pos), torch.empty_like(pos),
-            torch.empty_like(depth_neg), flag(), ints(n), flag(), flag(),
-            torch.empty_like(pos) if n_attrs else None), (ints(n), ints(1))
-
-
-@_counted("k3", "k3 repair")
 def fused_window_streamline_step(pos, depth_neg, nv, vids, s, table, rise,
                                  n_layers: int, n_window: int, dt: float,
                                  euler: bool = False):
@@ -466,47 +450,17 @@ def fused_window_streamline_step(pos, depth_neg, nv, vids, s, table, rise,
     outputs are the full step's.  layer is the layer at the start position
     (the next window's centre).
 
-    CUDA tensors launch the window kernel (counted in
-    ``fused_window_streamline_step.launches``), which appends the miss lanes
-    to a list, then K1 over that list on the same stream, which recomputes
-    them (counted in ``.repair_launches``, not in K1's launches); CPU
-    tensors run ``fused_window_streamline_step_plain``.
+    CUDA tensors launch the window kernel (counted under "k3",
+    launch_counts), which appends the miss lanes to a list, then K1 over
+    that list on the same stream, which recomputes them (counted under "k3
+    repair", not under K1's "k1"); CPU tensors run
+    ``fused_window_streamline_step_plain``.
     """
-    name = "fused_window_streamline_step"
-    F = table_width(n_layers)
-    n, K = _check(name, pos, depth_neg, nv, vids, (table,), F)
-    _check_window(name, s, n, n_layers, n_window, pos.device, (table,),
-                  (rise,))
-    if pos.device.type == "cpu":
-        return fused_window_streamline_step_plain(
-            pos, depth_neg, nv, vids, s, table, rise, n_layers, n_window, dt,
-            euler)
-    _kernel_device(name, pos, K, n_layers)
-    out, (lst, cnt) = _window_outputs(pos, depth_neg)
-    lib = _library()
-    f32 = pos.dtype == torch.float32
-    fn = lib.window_streamline_step_f32 if f32 \
-        else lib.window_streamline_step_f64
-    repair = lib.streamline_step_f32 if f32 else lib.streamline_step_f64
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
-                 vids.data_ptr(), s.data_ptr(), table.data_ptr(),
-                 rise.data_ptr(), n, K, F, n_layers, n_window, float(dt),
-                 int(bool(euler)), *(t.data_ptr() for t in out[:7]),
-                 lst.data_ptr(), cnt.data_ptr(), stream)
-        _raise_on(name, err)
-        _launched("k3", pos.dtype)
-        # the miss lanes' full-column step (K1 over their list)
-        err = repair(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
-                     vids.data_ptr(), table.data_ptr(), n, K, F, n_layers,
-                     float(dt), int(bool(euler)),
-                     *(t.data_ptr() for t in out[:4]), lst.data_ptr(),
-                     cnt.data_ptr(), out[4].data_ptr(), stream)
-        _raise_on(f"{name} (repair)", err)
-        _launched("k3 repair", pos.dtype)
-    return out[:7]
-
+    return _launch("k3", lambda: fused_window_streamline_step_plain(
+        pos, depth_neg, nv, vids, s, table, rise, n_layers, n_window, dt,
+        euler),
+        pos, depth_neg, nv, vids, (table,), n_layers, dt, euler,
+        window=(s, (rise,), n_window))
 
 
 def _window_inputs(table, vids, s, n_layers, n_window, n_attrs):
@@ -540,7 +494,6 @@ def fused_window_streamline_step_plain(pos, depth_neg, nv, vids, s, table,
             torch.clamp(layer, 1, n_layers - 1).to(torch.int32), miss, clamp)
 
 
-@_counted("k4", "k4 repair")
 def fused_window_pathline_step(pos, depth_neg, nv, vids, s, table_f, table_b,
                                rise_f, rise_b, n_layers: int, n_window: int,
                                dt: float, alphas, euler: bool = False,
@@ -556,52 +509,15 @@ def fused_window_pathline_step(pos, depth_neg, nv, vids, s, table_f, table_b,
     miss lanes are recomputed on the full columns (K2's arithmetic), and
     layer is the front snapshot's at the start position.
 
-    CUDA tensors launch the window kernel (counted in
-    ``fused_window_pathline_step.launches``), then K2 over its list of miss
-    lanes (counted in ``.repair_launches``); CPU tensors run
-    ``fused_window_pathline_step_plain``.
+    CUDA tensors launch the window kernel (counted under "k4",
+    launch_counts), then K2 over its list of miss lanes (counted under "k4
+    repair"); CPU tensors run ``fused_window_pathline_step_plain``.
     """
-    name = "fused_window_pathline_step"
-    if not 0 <= n_attrs <= A_MAX:
-        raise ValueError(f"{name}: n_attrs={n_attrs} outside 0..{A_MAX}")
-    F = table_width(n_layers, n_attrs)
-    n, K = _check(name, pos, depth_neg, nv, vids, (table_f, table_b), F)
-    _check_window(name, s, n, n_layers, n_window, pos.device,
-                  (table_f, table_b), (rise_f, rise_b))
-    if pos.device.type == "cpu":
-        return fused_window_pathline_step_plain(
-            pos, depth_neg, nv, vids, s, table_f, table_b, rise_f, rise_b,
-            n_layers, n_window, dt, alphas, euler, n_attrs)
-    _kernel_device(name, pos, K, n_layers)
-    out, (lst, cnt) = _window_outputs(pos, depth_neg, n_attrs)
-    attr = None if out[7] is None else out[7].data_ptr()
-    lib = _library()
-    f32 = pos.dtype == torch.float32
-    fn = lib.window_pathline_step_f32 if f32 \
-        else lib.window_pathline_step_f64
-    repair = lib.pathline_step_f32 if f32 else lib.pathline_step_f64
-    a1, a2, a4 = (float(a) for a in alphas)
-    with torch.cuda.device(pos.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
-                 vids.data_ptr(), s.data_ptr(), table_f.data_ptr(),
-                 table_b.data_ptr(), rise_f.data_ptr(), rise_b.data_ptr(), n,
-                 K, F, n_layers, n_window, n_attrs, float(dt), a1, a2, a4,
-                 int(bool(euler)), *(t.data_ptr() for t in out[:7]),
-                 lst.data_ptr(), cnt.data_ptr(), attr, stream)
-        _raise_on(name, err)
-        _launched("k4", pos.dtype)
-        # the miss lanes' full-column step (K2 over their list)
-        err = repair(pos.data_ptr(), depth_neg.data_ptr(), nv.data_ptr(),
-                     vids.data_ptr(), table_f.data_ptr(), table_b.data_ptr(),
-                     n, K, F, n_layers, n_attrs, float(dt), a1, a2, a4,
-                     int(bool(euler)), *(t.data_ptr() for t in out[:4]),
-                     attr, lst.data_ptr(), cnt.data_ptr(), out[4].data_ptr(),
-                     stream)
-        _raise_on(f"{name} (repair)", err)
-        _launched("k4 repair", pos.dtype)
-    return out
-
+    return _launch("k4", lambda: fused_window_pathline_step_plain(
+        pos, depth_neg, nv, vids, s, table_f, table_b, rise_f, rise_b,
+        n_layers, n_window, dt, alphas, euler, n_attrs),
+        pos, depth_neg, nv, vids, (table_f, table_b), n_layers, dt, euler,
+        alphas, n_attrs, (s, (rise_f, rise_b), n_window))
 
 
 def fused_window_pathline_step_plain(pos, depth_neg, nv, vids, s, table_f,
@@ -635,33 +551,3 @@ def fused_window_pathline_step_plain(pos, depth_neg, nv, vids, s, table_f,
     return (new_pos, hvel, wvel, ok,
             torch.clamp(layer, 1, n_layers - 1).to(torch.int32), miss, clamp,
             attr if n_attrs else None)
-
-
-# The step kernels' launch counters, as launch_counts reads them through
-# the wrappers' attributes (a stand-in put in a wrapper's place counts its
-# own): K1-K4 and the window paths' masked K1/K2 repairs.
-COUNT_KEYS = ("k1", "k2", "k3", "k3 repair", "k4", "k4 repair")
-
-
-def _counters():
-    w3, w4 = fused_window_streamline_step, fused_window_pathline_step
-    return ((fused_streamline_step, "launches"),
-            (fused_pathline_step, "launches"), (w3, "launches"),
-            (w3, "repair_launches"), (w4, "launches"),
-            (w4, "repair_launches"))
-
-
-def launch_counts() -> dict:
-    """The step kernels' launch counts (the recorder's counters
-    kernels.launches.<key>), keyed as COUNT_KEYS.  The K1/K2 instance a count launched is
-    column_instance(L) of its run."""
-    return {key: getattr(fn, attr)
-            for key, (fn, attr) in zip(COUNT_KEYS, _counters())}
-
-
-def reset_counts():
-    """Every step kernel's launch count, and its double instance's, to 0."""
-    for fn, attr in _counters():
-        setattr(fn, attr, 0)
-    for key in COUNT_KEYS:
-        TimerManager.instance().reset_counter(F64_LAUNCHES + key)

@@ -84,10 +84,10 @@ def _step_inputs(mesh, sol, dev):
 def test_kernel_matches_plain_f64(card, euler):
     mesh, sol, dev = card
     args = _step_inputs(mesh, sol, dev)
-    before = fused_streamline_step.launches
+    before = sk.launch_counts()["k1"]
     got = fused_streamline_step(*args, DT, euler=euler)
     torch.cuda.synchronize()
-    assert fused_streamline_step.launches == before + 1
+    assert sk.launch_counts()["k1"] == before + 1
     want = fused_streamline_step_plain(*args, DT, euler=euler)
     for a, b, tol in zip(got[:3], want[:3], (1e-6, 1e-10, 1e-12)):
         torch.testing.assert_close(a, b, rtol=0, atol=tol, equal_nan=True)
@@ -103,9 +103,9 @@ def test_run_kernel_path_matches_plain_path_f64(card):
     cells = mtt.CellSearch(mesh).query(seeds)
     cfg = mtt.TrajectorySettings(delta_t=600, simulation_duration=600 * 12,
                                  record_t=1200, depth=300.0)
-    before = fused_streamline_step.launches
+    before = sk.launch_counts()["k1"]
     a = mtt.run_advection(mesh, sol, seeds, cells, cfg, use_window=False)
-    assert fused_streamline_step.launches == before + cfg.n_steps
+    assert sk.launch_counts()["k1"] == before + cfg.n_steps
     b = mtt.run_advection(mesh, sol, seeds, cells, cfg, use_kernel=False)
     torch.testing.assert_close(a.points, b.points, rtol=0, atol=1e-6)
     torch.testing.assert_close(a.velocities, b.velocities, rtol=0, atol=1e-10)
@@ -142,11 +142,11 @@ def test_pathline_kernel_matches_plain_f64(card, card_back, euler, n_attrs):
     mesh, sol, dev = card
     args = _pathline_inputs(mesh, sol, card_back, dev, n_attrs)
     for alphas in ((0.3, 0.305, 0.31), (0.996, 1.0, 1.0)):
-        before = fused_pathline_step.launches
+        before = sk.launch_counts()["k2"]
         got = fused_pathline_step(*args, DT, alphas, euler=euler,
                                   n_attrs=n_attrs)
         torch.cuda.synchronize()
-        assert fused_pathline_step.launches == before + 1
+        assert sk.launch_counts()["k2"] == before + 1
         want = fused_pathline_step_plain(*args, DT, alphas, euler=euler,
                                          n_attrs=n_attrs)
         for a, b, tol in zip(got[:3], want[:3], (1e-6, 1e-10, 1e-12)):
@@ -168,10 +168,10 @@ def test_pathline_run_kernel_path_matches_plain_path_f64(card, card_back):
     cells = mtt.CellSearch(mesh).query(seeds)
     cfg = mtt.TrajectorySettings(delta_t=600, simulation_duration=600 * 12,
                                  record_t=1200, depth=300.0)
-    before = fused_pathline_step.launches
+    before = sk.launch_counts()["k2"]
     a = mtt.run_advection(mesh, sol, seeds, cells, cfg, back=card_back,
                           use_window=False)
-    assert fused_pathline_step.launches == before + cfg.n_steps
+    assert sk.launch_counts()["k2"] == before + cfg.n_steps
     b = mtt.run_advection(mesh, sol, seeds, cells, cfg, back=card_back,
                           use_kernel=False)
     torch.testing.assert_close(a.points, b.points, rtol=0, atol=1e-6)
@@ -503,14 +503,14 @@ def test_window_kernel_matches_plain_f64(card, card_back, path, euler):
         args, extra = (pos, dn, nv, vids, s, tf, tb, sk.table_rise(tf, L),
                        sk.table_rise(tb, L), L, W, DT), ((0.996, 1.0, 1.0),)
         kw = {"n_attrs": n_attrs}
-    full = sk.fused_pathline_step if path != "streamline" \
-        else sk.fused_streamline_step
-    before = (fn.launches, fn.repair_launches, full.launches)
+    key, full = ("k3", "k1") if path == "streamline" else ("k4", "k2")
+    keys = lambda c: (c[key], c[f"{key} repair"], c[full])
+    before = keys(sk.launch_counts())
     got = fn(*args, *extra, euler=euler, **kw)
     torch.cuda.synchronize()
     # one window launch and one masked repair launch; K1/K2's own count
     # does not move
-    assert (fn.launches, fn.repair_launches, full.launches) \
+    assert keys(sk.launch_counts()) \
         == (before[0] + 1, before[1] + 1, before[2])
     want = plain(*args, *extra, euler=euler, **kw)
     for a, b, tol in zip(got[:3], want[:3], (1e-6, 1e-10, 1e-12)):
@@ -528,7 +528,8 @@ def test_window_kernel_matches_plain_f64(card, card_back, path, euler):
 @pytest.mark.cuda
 @pytest.mark.parametrize("pathline", [False, True],
                          ids=["streamline", "pathline"])
-def test_windowed_run_matches_plain_path_f64(card, card_back, pathline):
+def test_windowed_run_matches_plain_path_f64(card, card_back, pathline,
+                                            monkeypatch):
     """A run on the card takes the window kernels by default and matches
     the plain path."""
     mesh, sol, dev = card
@@ -540,13 +541,13 @@ def test_windowed_run_matches_plain_path_f64(card, card_back, pathline):
         delta_t=600, simulation_duration=600 * 12, record_t=1200,
         particle_depths=np.linspace(10.0, 3900.0, len(seeds)).astype(
             np.float32))
-    fn = sk.fused_window_pathline_step if pathline \
-        else sk.fused_window_streamline_step
-    full = sk.fused_pathline_step if pathline else sk.fused_streamline_step
-    before = (fn.launches, fn.repair_launches, full.launches)
-    a = mtt.run_advection(mesh, sol, seeds, cells, cfg, back=back, window=W)
+    key, full = ("k4", "k2") if pathline else ("k3", "k1")
+    keys = lambda c: (c[key], c[f"{key} repair"], c[full])
+    monkeypatch.setattr(advect, "WINDOW_LAYERS", W)
+    before = keys(sk.launch_counts())
+    a = mtt.run_advection(mesh, sol, seeds, cells, cfg, back=back)
     # one window launch and one masked repair launch a step, no K1/K2 launch
-    assert (fn.launches, fn.repair_launches, full.launches) == (
+    assert keys(sk.launch_counts()) == (
         before[0] + cfg.n_steps, before[1] + cfg.n_steps, before[2])
     b = mtt.run_advection(mesh, sol, seeds, cells, cfg, back=back,
                           use_kernel=False)
@@ -668,12 +669,11 @@ def test_api_lines_equal_direct_run(card, card_back, pathline):
         delta_t=600, simulation_duration=600 * 12, record_t=1200,
         particle_depths=np.linspace(10.0, 3900.0, len(seeds)).astype(
             np.float32), fail_mode=mtt.FailMode.ZERO)
-    fn = sk.fused_window_pathline_step if pathline \
-        else sk.fused_window_streamline_step
-    before = fn.launches
+    key = "k4" if pathline else "k3"
+    before = sk.launch_counts()[key]
     pts = seeds.copy()
     lines = (app.run_pathline if pathline else app.run_streamline)(cfg, pts)
-    assert fn.launches == before + cfg.n_steps
+    assert sk.launch_counts()[key] == before + cfg.n_steps
     back = card_back if pathline else None
     raw = mtt.run_advection(mesh, sol, seeds, mtt.CellSearch(mesh).query(seeds),
                             cfg, back=back)
@@ -828,13 +828,13 @@ def test_sharded_on_the_card_equals_single_device(card, card_back, pathline):
     mesh, sol, back, seeds, cells, cfg, _ = _card_run(card, card_back,
                                                       pathline, True)
     dev = card[2]
-    fn = sk.fused_window_pathline_step if pathline \
-        else sk.fused_window_streamline_step
+    key = "k4" if pathline else "k3"
+    keys = lambda c: (c[key], c[f"{key} repair"])
     single = mtt.run_advection(mesh, sol, seeds, cells, cfg, back=back)
-    before = fn.launches, fn.repair_launches
+    before = keys(sk.launch_counts())
     got = run_advection_sharded(mesh, sol, seeds, cells, cfg,
                                 devices=[dev] * 4, back=back)
-    assert (fn.launches, fn.repair_launches) == \
+    assert keys(sk.launch_counts()) == \
         (before[0] + 4 * cfg.n_steps, before[1] + 4 * cfg.n_steps)
     for f in ("points", "velocities", "attrs", "final_position",
               "final_depth", "alive", "window_misses"):
@@ -861,16 +861,13 @@ def test_migrating_on_the_card_equals_single_device(card, card_back,
     dev = card[2]
     key = ("k2" if pathline else "k1") if not use_window else \
         ("k4" if pathline else "k3")
-    fn = {"k1": sk.fused_streamline_step, "k2": sk.fused_pathline_step,
-          "k3": sk.fused_window_streamline_step,
-          "k4": sk.fused_window_pathline_step}[key]
     single = mtt.run_advection(mesh, sol, seeds, cells, cfg, back=back,
                                use_window=use_window)
-    before = fn.launches
+    before = sk.launch_counts()[key]
     res = run_advection_migrating(mesh, sol, seeds, cells, cfg,
                                   devices=[dev] * 8, dtype=real, back=back,
                                   migrate_every=3, use_window=use_window)
-    assert fn.launches == before + 8 * cfg.n_steps
+    assert sk.launch_counts()[key] == before + 8 * cfg.n_steps
     assert int(res.dropped.sum()) == 0 and int(res.migrated.sum()) > 0
     ids = res.final_ids.cpu().numpy()
     assert sorted(ids[ids >= 0].tolist()) == list(range(len(seeds)))
@@ -1027,13 +1024,14 @@ def test_detail_under_a_cuda_profiler(card, monkeypatch):
         particle_depths=np.linspace(10.0, 3900.0, len(seeds)).astype(
             np.float32))
     mgr = tm.TimerManager.instance()
+    monkeypatch.setattr(advect, "WINDOW_LAYERS", W)
 
     def traced():
         mgr.reset()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             with mgr.request("api.test"):
                 detail = mgr.detail()
-                mtt.run_advection(mesh, sol, seeds, cells, cfg, window=W)
+                mtt.run_advection(mesh, sol, seeds, cells, cfg)
             torch.cuda.synchronize()
         events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
                   for e in prof.profiler.kineto_results.events()
@@ -1088,7 +1086,8 @@ def _same_bits(a, b):
 @pytest.mark.parametrize("direction", ["FORWARD", "BACKWARD"])
 @pytest.mark.parametrize("fail_mode", ["ZERO", "FREEZE"])
 def test_graphed_streamline_equals_eager_bit_for_bit(card, dtype, use_window,
-                                                     direction, fail_mode):
+                                                     direction, fail_mode,
+                                                     monkeypatch):
     """A streamline whose steps replay a captured CUDA graph (the default
     on the card) equals the eager loop's bit for bit: points, velocities,
     final state and window misses; each request counts the same launches
@@ -1103,12 +1102,13 @@ def test_graphed_streamline_equals_eager_bit_for_bit(card, dtype, use_window,
             np.float32),
         direction=getattr(mtt.CalcDirection, direction),
         fail_mode=getattr(mtt.FailMode, fail_mode))
+    monkeypatch.setattr(advect, "WINDOW_LAYERS", W)
     runs, counts = {}, {}
     for graph in (False, None):
         with mgr.request("api.test"):
             runs[graph] = mtt.run_advection(mesh, sol, seeds, cells, cfg,
                                             dtype=dtype, use_window=use_window,
-                                            window=W, graph=graph)
+                                            graph=graph)
         rid = [s for s in mgr.spans() if s.name == "api.test"][-1].request
         counts[graph] = {k: n for k, n in mgr.counters()[rid].items()
                          if k.startswith((sk.LAUNCHES, sk.F64_LAUNCHES,
@@ -1134,7 +1134,7 @@ def test_graphed_streamline_equals_eager_bit_for_bit(card, dtype, use_window,
 
 
 @pytest.mark.cuda
-def test_successive_graphed_requests_do_not_share_storage(card):
+def test_successive_graphed_requests_do_not_share_storage(card, monkeypatch):
     """Two graphed requests' RawTrajectories share no storage, and the
     first's values survive the second's replays."""
     from mops_tpu_torch.utils.timer import TimerManager
@@ -1146,11 +1146,12 @@ def test_successive_graphed_requests_do_not_share_storage(card):
     fields = lambda raw: {f.name: getattr(raw, f.name)
                           for f in dataclasses.fields(raw)
                           if getattr(raw, f.name) is not None}
-    first = mtt.run_advection(mesh, sol, seeds, cells, cfg, window=W)
+    monkeypatch.setattr(advect, "WINDOW_LAYERS", W)
+    first = mtt.run_advection(mesh, sol, seeds, cells, cfg)
     kept = {k: v.clone() for k, v in fields(first).items()}
     replayed = TimerManager.instance().counter("advect.graph_steps")
     second = mtt.run_advection(mesh, sol, seeds[::-1].copy(),
-                               cells[::-1].copy(), cfg, window=W)
+                               cells[::-1].copy(), cfg)
     assert TimerManager.instance().counter("advect.graph_steps") > replayed
 
     def spans(raw):
@@ -1166,7 +1167,7 @@ def test_successive_graphed_requests_do_not_share_storage(card):
 
 
 @pytest.mark.cuda
-def test_graphed_detail_keeps_the_phases_and_the_kernels(card):
+def test_graphed_detail_keeps_the_phases_and_the_kernels(card, monkeypatch):
     """A traced (detail) graphed request still keeps the five PHASES spans
     with stream time, and the profiler sees the replayed kernels: the
     same device kernels, name for name, as the eager loop launches, but
@@ -1184,14 +1185,14 @@ def test_graphed_detail_keeps_the_phases_and_the_kernels(card):
         delta_t=600, simulation_duration=600 * 15, record_t=1800,
         particle_depths=np.linspace(10.0, 3900.0, len(seeds)).astype(
             np.float32))
+    monkeypatch.setattr(advect, "WINDOW_LAYERS", W)
     kernels = {}
     for graph in (False, None, False, None):          # the first two warm
         mgr.reset()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             with mgr.request("api.test"):
                 assert mgr.detail()
-                mtt.run_advection(mesh, sol, seeds, cells, cfg, window=W,
-                                  graph=graph)
+                mtt.run_advection(mesh, sol, seeds, cells, cfg, graph=graph)
             torch.cuda.synchronize()
         names = [e.name() for e in prof.profiler.kineto_results.events()
                  if e.device_type() == DeviceType.CUDA]

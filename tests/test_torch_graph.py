@@ -77,17 +77,18 @@ SCHEDULES = {
 @pytest.mark.parametrize("fail_mode", ["ZERO", "FREEZE"])
 @pytest.mark.parametrize("direction", ["FORWARD", "BACKWARD"])
 def test_graphed_run_equals_eager_bit_for_bit(case, window, fail_mode,
-                                              direction):
+                                              direction, monkeypatch):
     """run_advection with graph=True (replays, the CPU's rerun) gives the
     eager loop's records, final state and window misses bit for bit, and
     counts the steps it replayed."""
     mesh, sol, seeds, cells = case
     cfg = _settings(seeds, fail_mode, direction)
+    monkeypatch.setattr(advect, "WINDOW_LAYERS", 4)
     runs = {}
     for graph in (False, True):
         runs[graph], replayed = _replayed(lambda: advect.run_advection(
             mesh, sol, seeds, cells, cfg, device="cpu", use_window=window,
-            window=4, graph=graph))
+            graph=graph))
         assert replayed == (cfg.n_steps - advect.GRAPH_WARM_STEPS
                             if graph else 0)
     _assert_same(runs[False], runs[True])
@@ -95,7 +96,8 @@ def test_graphed_run_equals_eager_bit_for_bit(case, window, fail_mode,
 
 
 @pytest.mark.parametrize("schedule", ["pathline-style", "odd"])
-def test_record_from_fixed_rows_equals_slice_form(case, schedule):
+def test_record_from_fixed_rows_equals_slice_form(case, schedule,
+                                                  monkeypatch):
     """The record phase after a replay writes p.pos and the step's fixed
     value rows into record_schedule's slots, as advance writes them: the
     points and velocities equal the eager loop's, including a schedule
@@ -106,8 +108,9 @@ def test_record_from_fixed_rows_equals_slice_form(case, schedule):
     else:
         cfg = _settings(seeds, delta_t=120, duration=120 * 50, record_t=250)
     pathline_style = schedule != "odd"
+    monkeypatch.setattr(advect, "WINDOW_LAYERS", 4)
     st, sols = advect.prepare(mesh, sol, None, cfg, torch.float64,
-                              torch.device("cpu"), use_window=True, window=4)
+                              torch.device("cpu"), use_window=True)
     flags, slots = advect.record_schedule(cfg, pathline_style)
     st = dataclasses.replace(st, flags=flags, slots=slots)
     if pathline_style:       # 25 records fall due, R = 24: the last dropped
@@ -179,16 +182,17 @@ def test_resolve_graph_applies_to_one_device_kernel_streamlines(case):
             advect.resolve_graph(True, stepper, devices)
 
 
-def test_pathline_and_several_devices_keep_the_eager_loop(case):
+def test_pathline_and_several_devices_keep_the_eager_loop(case, monkeypatch):
     mesh, sol, seeds, cells = case
     cfg = _settings(seeds)
+    monkeypatch.setattr(advect, "WINDOW_LAYERS", 4)
     with pytest.raises(ValueError):
         advect.run_advection(mesh, sol, seeds, cells, cfg, back=sol,
                              device="cpu", graph=True)
     one = advect.run_advection(mesh, sol, seeds, cells, cfg, device="cpu",
-                               graph=True, use_window=True, window=4)
+                               graph=True, use_window=True)
     two, replayed = _replayed(lambda: advect.run_advection(
-        mesh, sol, seeds, cells, cfg, use_window=True, window=4,
+        mesh, sol, seeds, cells, cfg, use_window=True,
         devices=["cpu", "cpu"]))
     assert replayed == 0
     _assert_same(one, two)
@@ -201,14 +205,14 @@ def test_held_launches_count_once_a_replay():
     mgr = TimerManager.instance()
     sk.reset_counts()
     with sk.held_counts() as tally:
-        sk._launched("k3", torch.float64)
-        sk._launched("k3 repair", torch.float64)
+        sk.count_launch("k3", torch.float64)
+        sk.count_launch("k3 repair", torch.float64)
     assert sk.launch_counts()["k3"] == 0
     assert tally == {sk.LAUNCHES + "k3": 1, sk.LAUNCHES + "k3 repair": 1,
                      sk.F64_LAUNCHES + "k3": 1,
                      sk.F64_LAUNCHES + "k3 repair": 1}
     sk.count_launches(tally, 7)
-    sk._launched("k3", torch.float32)
+    sk.count_launch("k3", torch.float32)
     assert sk.launch_counts()["k3"] == 8
     assert sk.launch_counts()["k3 repair"] == 7
     assert mgr.counter(sk.F64_LAUNCHES + "k3") == 7

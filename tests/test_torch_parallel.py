@@ -138,14 +138,16 @@ def test_sharded_equals_single_device_and_jax(mesh, sol, sol_back, particles,
 
 
 def test_sharded_window_path_and_fewer_particles_than_shards(mesh, sol,
-                                                              particles):
+                                                              particles,
+                                                              monkeypatch):
     """The window path (W = 4 at L = 6) shards bit-equal too, and with 5
     particles on 8 shards the empty shards run nothing."""
     seeds, cells, depths = particles
     pmesh, psol = mesh_from_jax(mesh), solution_from_jax(sol)
+    monkeypatch.setattr(mtt.advect, "WINDOW_LAYERS", 4)
     for n in (64, 5):
         cfg = _cfg(mtt, depths[:n])
-        kw = dict(use_window=True, window=4)
+        kw = dict(use_window=True)
         single = mtt.run_advection(pmesh, psol, seeds[:n], cells[:n], cfg,
                                    device="cpu", **kw)
         got = mtt.run_advection(pmesh, psol, seeds[:n], cells[:n], cfg,

@@ -27,6 +27,7 @@ from mops_tpu_torch import advect
 from mops_tpu_torch.from_jax import mesh_from_jax, solution_from_jax
 from mops_tpu_torch.kernels.stage_kernel import (fused_pathline_step,
                                                  fused_pathline_step_plain,
+                                                 launch_counts,
                                                  pack_vertex_table)
 from mops_tpu_torch.step import _clamp_profile, _layer_search_linear
 
@@ -256,10 +257,10 @@ def test_plain_pathline_step_matches_jax_pallas_kernel(
 def test_pathline_wrapper_takes_the_plain_version_on_cpu(mesh, sol,
                                                          sol_back_attrs):
     args = _port_inputs(mesh, sol, sol_back_attrs, _case(mesh), 2)
-    before = fused_pathline_step.launches
+    before = launch_counts()
     got = fused_pathline_step(*args, DT, ALPHAS["mid"], n_attrs=2)
     want = fused_pathline_step_plain(*args, DT, ALPHAS["mid"], n_attrs=2)
-    assert fused_pathline_step.launches == before        # no kernel launch
+    assert launch_counts() == before                     # no kernel launch
     for a, b in zip(got, want):
         torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
 

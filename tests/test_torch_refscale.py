@@ -144,14 +144,15 @@ def test_case_a_reduced_matches_jax():
     assert float(np.abs(raw.final_position.numpy() - seeds).max()) > 1e3
 
 
-def _counting(fn, repair):
-    """A step wrapper that counts its calls as the CUDA wrapper counts its
-    launches (the window ones with their repair) and runs ``fn``."""
-    def wrapper(*args, **kw):
-        wrapper.launches += 1
-        wrapper.repair_launches += int(repair)
-        return fn(*args, **kw)
-    wrapper.launches = wrapper.repair_launches = 0
+def _counting(fn, key, repair):
+    """A step wrapper that counts its calls under ``key`` as the CUDA
+    wrapper counts its launches (the window ones with their repair) and
+    runs ``fn``."""
+    def wrapper(pos, *args, **kw):
+        sk.count_launch(key, pos.dtype)
+        if repair:
+            sk.count_launch(f"{key} repair", pos.dtype)
+        return fn(pos, *args, **kw)
     return wrapper
 
 
@@ -181,9 +182,9 @@ def test_phase_8e_rehearsal_matches_jax(monkeypatch):
              "window_pathline_kernel": 1.0}
     monkeypatch.setattr(cs, "device_breakdown",
                         lambda run: (3.0, 4.0, names, (0.0, 0.0, "")))
-    for name, repair in (("fused_pathline_step", False),
-                         ("fused_window_pathline_step", True)):
-        wrapper = _counting(getattr(sk, name), repair)
+    for name, key, repair in (("fused_pathline_step", "k2", False),
+                              ("fused_window_pathline_step", "k4", True)):
+        wrapper = _counting(getattr(sk, name), key, repair)
         monkeypatch.setattr(sk, name, wrapper)
         monkeypatch.setattr(advect, name, wrapper)
     resolve = advect.resolve_window

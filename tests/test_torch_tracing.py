@@ -61,11 +61,10 @@ def app(case):
 def _window_on(monkeypatch):
     """The window path for use_window=None, as on the card (W = 4 at L6)."""
     resolve = advect.resolve_window
+    monkeypatch.setattr(advect, "WINDOW_LAYERS", 4)
     monkeypatch.setattr(
-        advect, "resolve_window",
-        lambda use_kernel, use_window, device, n_layers, window=None:
-        resolve(use_kernel, True if use_window is None else use_window,
-                device, n_layers, 4))
+        advect, "resolve_window", lambda use_kernel, use_window, *a:
+        resolve(use_kernel, True if use_window is None else use_window, *a))
 
 
 def _of(spans, request, name=None):
@@ -322,11 +321,11 @@ def test_window_miss_counter_equals_the_runs_misses(case, mgr, monkeypatch):
     mesh, raw, seeds, cfg = case
     sol = mtt.preprocess(mesh, raw, device="cpu")
     cells = mtt.CellSearch(mesh).query(seeds)
+    monkeypatch.setattr(advect, "WINDOW_LAYERS", 4)
     with profile(activities=[ProfilerActivity.CPU]):
         with mgr.request("api.test"):
             got = advect.run_advection(mesh, sol, seeds, cells, cfg,
-                                       device="cpu", use_window=True,
-                                       window=4)
+                                       device="cpu", use_window=True)
     rid = _request_id(mgr.spans(), "api.test")
     counts = mgr.counters()[rid]
     misses = int(got.window_misses.sum())
@@ -344,12 +343,6 @@ def test_launch_counts_read_the_recorder(mgr):
     counts = sk.launch_counts()
     assert counts == {"k1": 2, "k2": 0, "k3": 3, "k3 repair": 3, "k4": 0,
                       "k4 repair": 1}
-    assert sk.fused_window_streamline_step.launches == 3
-    assert sk.fused_window_streamline_step.repair_launches == 3
-    with pytest.raises(AttributeError):
-        sk.fused_streamline_step.repair_launches
-    with pytest.raises(ValueError):
-        sk.fused_streamline_step.launches = 5
     sk.reset_counts()
     assert sk.launch_counts() == dict.fromkeys(sk.COUNT_KEYS, 0)
     assert mgr.counter(sk.LAUNCHES + "k3") == 0
@@ -483,7 +476,7 @@ def test_f64_launch_pct_reads_the_profiled_requests_counters(mgr):
                 stack.enter_context(profile(activities=[ProfilerActivity.CPU]))
             with mgr.request("api.streamline"):
                 for key in keys:
-                    sk._launched(key, dtype)
+                    sk.count_launch(key, dtype)
         return _request_id(mgr.spans(), "api.streamline")
 
     rid = request(torch.float64, ["k3", "k3 repair"] * 5)

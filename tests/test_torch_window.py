@@ -216,10 +216,10 @@ def test_window_wrappers_take_the_plain_versions_on_cpu(mesh, sol,
     for sols, n_attrs in (([sol], 0), ([sol, sol_back_attrs], 2)):
         fn = sk.fused_window_streamline_step if len(sols) == 1 \
             else sk.fused_window_pathline_step
-        before = fn.launches
+        before = sk.launch_counts()
         got, _, _ = _port(mesh, sols, case, False, n_attrs, plain=False)
         want, _, _ = _port(mesh, sols, case, False, n_attrs)
-        assert fn.launches == before                     # no kernel launch
+        assert sk.launch_counts() == before              # no kernel launch
         for a, b in zip(got, want):
             if b is None:
                 assert a is None
@@ -286,18 +286,18 @@ def _settings(mod, method, depths):
 @pytest.mark.parametrize("path", ["streamline", "pathline"])
 @pytest.mark.parametrize("method", ["RK4", "EULER"])
 def test_windowed_run_matches_jax_oracle(mesh, sol, sol_back_attrs, particles,
-                                         path, method):
+                                         path, method, monkeypatch):
     """A run through the layer-window step with windows of W = 4 equals
     the exact JAX path, attributes included, and counts its misses."""
     seeds, cells, depths = particles
     back = sol_back_attrs if path == "pathline" else None
+    monkeypatch.setattr(advect, "WINDOW_LAYERS", W)
     ref = mt.run_advection(mesh, sol, seeds, cells,
                            _settings(mt, method, depths), back=back,
                            use_pallas=False)
     port = mtt.run_advection(
         mesh_from_jax(mesh), solution_from_jax(sol), seeds, cells,
         _settings(mtt, method, depths), device="cpu", use_window=True,
-        window=W,
         back=None if back is None else solution_from_jax(back))
     c = lambda t: t.cpu().numpy()
     np.testing.assert_allclose(c(port.points), np.asarray(ref.points),
@@ -449,7 +449,7 @@ def rising_oracle(rising_case):
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("kernel", ["k3", "k4"])
 def test_window_step_on_rising_columns_is_the_full_step(
-        rising_case, rising_oracle, kernel, real, method, form):
+        rising_case, rising_oracle, kernel, real, method, form, monkeypatch):
     """K3's and K4's plain versions where raw ztop columns rise above,
     inside and below the window: every lane's ok equals the full step's,
     the clamp-flagged lanes' outputs are the full step's bit for bit, the
@@ -521,10 +521,11 @@ def test_window_step_on_rising_columns_is_the_full_step(
         delta_t=DT, simulation_duration=DT, record_t=DT,
         particle_depths=depths, fail_mode=mtt.FailMode.ZERO,
         method=getattr(mtt.CalcMethod, method))
+    monkeypatch.setattr(advect, "WINDOW_LAYERS", W)
     got = mtt.run_advection(
         mesh_from_jax(mesh), solution_from_jax(front), seeds, cells, cfg,
         back=solution_from_jax(back) if pathline else None, dtype=real,
-        device="cpu", use_window=True, window=W)
+        device="cpu", use_window=True)
     assert advect.LAST_RESOLVED["kernel"] == kernel
     ref = rising_oracle(form, pathline, method,
                         jnp.float64 if f64 else jnp.float32)
