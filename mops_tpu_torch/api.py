@@ -16,13 +16,17 @@ cellsearch.query (CPUCompute), advect.prepare (Preprocessing), advect.loop
 (GPUKernel: the device's stream time), advect.wait (the host waiting for
 the loop's tail, Other) and trajectory.finalize (CPUCompute: the lines
 assembled and cleaned on the records' device, then built on the host),
-with advect.readback (the finalized blocks to the host, MemoryCopy) nested
-in it.
+with advect.readback (the finalized blocks to the host, MemoryCopy) and,
+where the records lie on a card, trajectory.prefault_wait (Other) nested
+in it: such a request has its host blocks (trajectory.host_blocks) made
+resident on the app's worker thread while it runs, and finalize waits for
+them before it copies into them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -65,6 +69,8 @@ class MOPSApp:
     field: Optional[Field] = None
     precision: str = "fp64"
     devices: list = dataclasses.field(default_factory=list)
+    _worker: Optional[ThreadPoolExecutor] = dataclasses.field(
+        default=None, init=False, repr=False, compare=False)
 
     # -- lifecycle ----------------------------------------------------------
     def init(self, device="cuda", precision: str = "fp64",
@@ -156,6 +162,8 @@ class MOPSApp:
         records' device and read back once."""
         run_devices = self.devices if devices is None \
             else self._devices_for(devices)
+        host = self._host_blocks(run_devices[0], len(sample_points), cfg,
+                                 back is not None)
         cells = self.field.calc_in_which_cells(sample_points)
         mesh, front = self.field.device_tables()
         raw = advect.run_advection(mesh, front, sample_points, cells, cfg,
@@ -167,7 +175,21 @@ class MOPSApp:
         with timer("trajectory.finalize", "CPUCompute"):
             return trajectory.finalize_trajectories(
                 sample_points, raw.points, raw.velocities, cfg,
-                attrs=raw.attrs, with_attrs=raw.attrs is not None)
+                attrs=raw.attrs, with_attrs=raw.attrs is not None,
+                host=host)
+
+    def _host_blocks(self, device, n: int, cfg: TrajectorySettings,
+                     pathline: bool) -> Optional[Future]:
+        """The host blocks of a request whose records lie on ``device``,
+        made resident on the app's worker thread while the request runs;
+        None where the records are the host's (nothing is read back)."""
+        if torch.device(device).type == "cpu":
+            return None
+        if self._worker is None:
+            self._worker = ThreadPoolExecutor(
+                1, thread_name_prefix="mops-host-blocks")
+        return self._worker.submit(trajectory.host_blocks, n,
+                                   cfg.n_records, pathline)
 
     def run_streamline(self, cfg: TrajectorySettings,
                        sample_points: np.ndarray,

@@ -12,13 +12,18 @@ Host-side plumbing of reference src/Common/TrajectoryCommon.h:
 ``finalize_trajectories`` does all of it as block operations on the
 records' own device (the card's records are finalized on the card), reads
 each block back once, and gives every line row views of the host blocks.
+``host_blocks`` makes those host blocks resident ahead of the read-back: the
+API does so on a worker thread while the step loop runs, so that the copy
+lands in pages that are already faulted in.
 """
 
 from __future__ import annotations
 
 import gc
 import itertools
-from typing import List
+import warnings
+from concurrent.futures import Future
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
@@ -27,10 +32,26 @@ from .settings import TrajectoryLine, TrajectorySettings
 from .utils.timer import TimerManager, timer, wait
 
 
+def host_blocks(n: int, n_rec: int, pathline: bool) -> Dict[str, torch.Tensor]:
+    """The float64 host blocks that finalize_trajectories reads ``n`` lines
+    of ``n_rec`` records back into, each made resident: "pts" and "vel"
+    (n, n_rec + 1, 3), and for a pathline "att" of that shape and "ts" (2,
+    n, n_rec + 1).  A torch fill faults the pages in, spread over the
+    intra-op threads with the GIL released (NumPy's fill holds the GIL)."""
+    rows = (n, n_rec + 1, 3)
+    shapes = {"pts": rows, "vel": rows}
+    if pathline:
+        shapes.update(att=rows, ts=(2, n, n_rec + 1))
+    return {name: torch.empty(shape, dtype=torch.float64).zero_()
+            for name, shape in shapes.items()}
+
+
 def finalize_trajectories(seeds, points, velocities,
                           settings: TrajectorySettings,
                           attrs=None,
-                          with_attrs: bool = False) -> List[TrajectoryLine]:
+                          with_attrs: bool = False,
+                          host: Optional[Future] = None
+                          ) -> List[TrajectoryLine]:
     """Assemble + clean trajectory lines from raw (N, R, 3) record buffers
     (Common::FinalizeTrajectoryLines followed by
     RemoveNaNTrajectoriesAndReindex).
@@ -41,6 +62,15 @@ def finalize_trajectories(seeds, points, velocities,
     temperature, salinity and attrs are rows of those host blocks, its
     last_point a row of a block of its own.  With detail on, the counter
     trajectory.cut_lines counts the lines that held a non-finite point.
+
+    ``host`` (internal) is a future of ``host_blocks``' dict for these
+    records: the read-back waits for it (span trajectory.prefault_wait) and
+    copies each block into its prepared block, which the lines then view.
+    A block whose prepared one is missing or of another shape or dtype, or
+    every block where the future raised, goes to new memory (``.cpu()``).
+    Every call that copies (records off the CPU, or ``host`` given) counts
+    trajectory.readback_blocks, the blocks read back, and
+    trajectory.readback_ready, those copied into a prepared block.
     """
     points = torch.as_tensor(points)
     dev = points.device
@@ -81,14 +111,40 @@ def finalize_trajectories(seeds, points, velocities,
     if mgr.detail():
         mgr.add("trajectory.cut_lines", len(rows))
 
+    blocks = {name: b for name, b in
+              (("pts", pts), ("vel", vel), ("att", att), ("ts", ts))
+              if b is not None}
+    prepared = {}
+    if host is not None:
+        with timer("trajectory.prefault_wait", "Other"):
+            prepared = _prepared(host)
+    out, ready = {}, 0
     wait(dev)              # the read-back's span times the copies alone
     with timer("advect.readback", "MemoryCopy"):
-        pts, vel = pts.cpu().numpy(), vel.cpu().numpy()
-        att = None if att is None else att.cpu().numpy()
-        ts = None if ts is None else ts.cpu().numpy()
-    if ts is None:                 # a streamline's temperature and salinity
-        ts = np.zeros((2, n, n_rec + 1))
+        for name, block in blocks.items():
+            dst = prepared.get(name)
+            fits = dst is not None and dst.shape == block.shape \
+                and dst.dtype == block.dtype
+            out[name] = (dst.copy_(block) if fits else block.cpu()).numpy()
+            ready += fits
+    if dev.type != "cpu" or host is not None:
+        mgr.add("trajectory.readback_blocks", len(blocks))
+        mgr.add("trajectory.readback_ready", ready)
+    pts, vel, att = out["pts"], out["vel"], out.get("att")
+    # a streamline's temperature and salinity
+    ts = out["ts"] if "ts" in out else np.zeros((2, n, n_rec + 1))
     return _lines(pts, vel, ts, att, settings)
+
+
+def _prepared(host: Future) -> Dict[str, torch.Tensor]:
+    """The prepared blocks of ``host``, once its worker is done; none where
+    the worker raised (each block then goes to new memory)."""
+    try:
+        return host.result()
+    except Exception as exc:        # whatever the worker raised
+        warnings.warn(f"host blocks not prepared ({exc!r}): reading back "
+                      "into new memory", RuntimeWarning)
+        return {}
 
 
 def _lines(pts, vel, ts, att, settings) -> List[TrajectoryLine]:

@@ -802,6 +802,83 @@ def test_finalize_on_the_card_equals_host_finalize(card, card_back):
                                   np.stack([l.last_point for l in lines]))
 
 
+@pytest.mark.cuda
+def test_api_reads_back_into_prepared_host_blocks(card, card_back,
+                                                  monkeypatch):
+    """Through the API on the card each request's host blocks are made
+    resident on the app's worker and the read-back copies into them:
+    streamline and pathline lines equal those read back by ``.cpu()`` bit
+    for bit, the blocks are not pinned, two requests' lines share no
+    storage, and every block counts as read back and ready (none ready
+    without the prepared blocks)."""
+    from mops_tpu_torch import trajectory
+    from mops_tpu_torch.utils.timer import TimerManager
+    mesh, sol, dev = card
+    mgr = TimerManager.instance()
+    made = []
+    real = trajectory.host_blocks
+    monkeypatch.setattr(trajectory, "host_blocks",
+                        lambda *a: made.append(real(*a)) or made[-1])
+    app = mtt.MOPSApp()
+    app.init("cuda", "fp64")
+    app.begin()
+    app.add_grid(mesh)
+    app.add_solution(1, sol)
+    app.add_solution(2, card_back)
+    app.end()
+    seeds = mtt.seeding.generate_sample_points(mtt.SamplingSettings(
+        sample_range=(9, 9), lat_range=(-60, 60), lon_range=(-170, 170)))
+    cfg = mtt.TrajectorySettings(
+        delta_t=600, simulation_duration=600 * 12, record_t=1200,
+        particle_depths=np.linspace(10.0, 3900.0, len(seeds)).astype(
+            np.float32), fail_mode=mtt.FailMode.ZERO)
+    fields = ("points", "velocity", "temperature", "salinity", "last_point",
+              "attrs")
+
+    def request(run):
+        lines = run(cfg, seeds.copy())
+        rid = [s.request for s in mgr.spans()
+               if s.name.startswith("api.")][-1]
+        counts = mgr.counters()[rid]
+        return lines, (counts["trajectory.readback_blocks"],
+                       counts["trajectory.readback_ready"])
+
+    for pathline in (False, True):
+        app.active_attribute(*((1, 2) if pathline else (1,)))
+        run = app.run_pathline if pathline else app.run_streamline
+        n = 4 if pathline else 2
+        del made[:]
+        first, c1 = request(run)
+        second, c2 = request(run)
+        assert c1 == c2 == (n, n)
+        assert len(made) == 2 and all(len(b) == n for b in made)
+        with monkeypatch.context() as m:
+            m.setattr(app, "_host_blocks", lambda *a: None)
+            plain, c0 = request(run)
+        assert c0 == (n, 0)
+        for lines in (first, second):
+            assert len(lines) == len(plain) == len(seeds)
+            for x, y in zip(lines, plain):
+                for f in fields:
+                    u, v = getattr(x, f), getattr(y, f)
+                    assert (u is None) == (v is None), f
+                    if v is not None:
+                        assert (u.dtype, u.shape) == (v.dtype, v.shape), f
+                        assert u.tobytes() == v.tobytes(), (f, x.line_id)
+        for lines, blocks in zip((first, second), made):
+            assert not any(b.is_pinned() for b in blocks.values())
+            assert np.shares_memory(lines[0].points, blocks["pts"].numpy())
+            assert not torch.from_numpy(lines[0].points).is_pinned()
+
+        def ranges(blocks):
+            return [(b.data_ptr(), b.data_ptr() + b.nbytes)
+                    for b in blocks.values()]
+        for a0, a1 in ranges(made[0]):
+            for b0, b1 in ranges(made[1]):
+                assert a1 <= b0 or b1 <= a0
+        assert not np.shares_memory(first[0].points, second[0].points)
+
+
 def _card_run(card, card_back, pathline, f32):
     """Seeds, cells, settings and tables of a small multi-device run on the
     card (float32 when ``f32``, the main path's dtype)."""

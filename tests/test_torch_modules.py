@@ -7,6 +7,8 @@ compare too); the cell search must be equal.
 """
 
 import dataclasses
+import warnings
+from concurrent.futures import Future
 
 import jax.numpy as jnp
 import numpy as np
@@ -16,6 +18,7 @@ import torch
 import mops_tpu as mt
 import mops_tpu_torch as mtt
 from mops_tpu_torch.from_jax import mesh_from_jax, solution_from_jax
+from mops_tpu_torch.utils.timer import TimerManager
 
 torch.set_num_threads(1)
 
@@ -145,18 +148,29 @@ def _plant(cut, seeds, pts):
         pts[2, 4, 2] = np.nan
 
 
-@pytest.mark.parametrize("cut", ["none", "seed", "first", "middle", "last",
-                                 "mixed"])
-@pytest.mark.parametrize("with_attrs", [False, True],
-                         ids=["streamline", "attrs"])
-@pytest.mark.parametrize("dtype,source,depths", [
-    (np.float32, "numpy", True), (np.float64, "numpy", False),
-    (np.float32, "tensor", False), (np.float64, "tensor", True)],
-    ids=["f32-numpy-depths", "f64-numpy", "f32-tensor", "f64-tensor-depths"])
-def test_finalize_equals_original_bit_for_bit(cut, with_attrs, dtype, source,
-                                              depths):
-    """The block finalize gives the original loop's lines bit for bit, as
-    a list of lines whose last_point is no view of its points."""
+_FINALIZE_CASES = [
+    pytest.mark.parametrize("cut", ["none", "seed", "first", "middle",
+                                    "last", "mixed"]),
+    pytest.mark.parametrize("with_attrs", [False, True],
+                            ids=["streamline", "attrs"]),
+    pytest.mark.parametrize("dtype,source,depths", [
+        (np.float32, "numpy", True), (np.float64, "numpy", False),
+        (np.float32, "tensor", False), (np.float64, "tensor", True)],
+        ids=["f32-numpy-depths", "f64-numpy", "f32-tensor",
+             "f64-tensor-depths"])]
+
+
+def _finalize_cases(fn):
+    """finalize's cases: the non-finite cuts, with and without attributes,
+    NumPy or tensor records of either dtype, with or without depths."""
+    for mark in reversed(_FINALIZE_CASES):
+        fn = mark(fn)
+    return fn
+
+
+def _finalize_inputs(cut, with_attrs, dtype, depths):
+    """(seeds, points, velocities, attrs, TrajectorySettings kwargs) of 8
+    lines of 5 records, planted with ``cut``'s non-finite values."""
     rng = np.random.default_rng(7)
     n, r = 8, 5
     seeds = rng.normal(size=(n, 3)) * 6.4e6
@@ -167,14 +181,12 @@ def test_finalize_equals_original_bit_for_bit(cut, with_attrs, dtype, source,
     kw = dict(delta_t=60, record_t=120, simulation_duration=600)
     if depths:
         kw["particle_depths"] = np.linspace(5.0, 900.0, n)
-    ref = mt.finalize_trajectories(seeds, pts, vels,
-                                   mt.TrajectorySettings(**kw), attrs=attrs,
-                                   with_attrs=with_attrs)
-    wrap = torch.from_numpy if source == "tensor" else (lambda a: a)
-    got = mtt.finalize_trajectories(
-        seeds, wrap(pts), wrap(vels), mtt.TrajectorySettings(**kw),
-        attrs=None if attrs is None else wrap(attrs), with_attrs=with_attrs)
-    assert type(got) is list and len(got) == len(ref) == n
+    return seeds, pts, vels, attrs, kw
+
+
+def _assert_same_lines(got, ref):
+    """Every field of every line equal, bit for bit and of one type."""
+    assert type(got) is list and len(got) == len(ref)
     for a, b in zip(got, ref):
         for f in ("line_id", "duration", "timestamp", "depth"):
             assert getattr(a, f) == getattr(b, f), f
@@ -188,10 +200,125 @@ def test_finalize_equals_original_bit_for_bit(cut, with_attrs, dtype, source,
             assert isinstance(x, np.ndarray), f
             assert (x.dtype, x.shape) == (y.dtype, y.shape), f
             assert x.tobytes() == y.tobytes(), (f, a.line_id)
+
+
+@_finalize_cases
+def test_finalize_equals_original_bit_for_bit(cut, with_attrs, dtype, source,
+                                              depths):
+    """The block finalize gives the original loop's lines bit for bit, as
+    a list of lines whose last_point is no view of its points."""
+    seeds, pts, vels, attrs, kw = _finalize_inputs(cut, with_attrs, dtype,
+                                                   depths)
+    ref = mt.finalize_trajectories(seeds, pts, vels,
+                                   mt.TrajectorySettings(**kw), attrs=attrs,
+                                   with_attrs=with_attrs)
+    wrap = torch.from_numpy if source == "tensor" else (lambda a: a)
+    got = mtt.finalize_trajectories(
+        seeds, wrap(pts), wrap(vels), mtt.TrajectorySettings(**kw),
+        attrs=None if attrs is None else wrap(attrs), with_attrs=with_attrs)
+    assert len(got) == 8
+    _assert_same_lines(got, ref)
     line = got[-1]
     before = line.points.copy()
     line.last_point[:] = 1.0
     assert line.points.tobytes() == before.tobytes()
+
+
+def _done(result=None, exc=None) -> Future:
+    """A finished future of ``result`` (or one that raised ``exc``), as
+    the API's worker leaves it."""
+    fut = Future()
+    if exc is None:
+        fut.set_result(result)
+    else:
+        fut.set_exception(exc)
+    return fut
+
+
+def _readback_counts(call):
+    """(lines, {counter: count}) of ``call`` run as a request."""
+    mgr = TimerManager.instance()
+    with mgr.request("api.test"):
+        lines = call()
+    rid = [s.request for s in mgr.spans() if s.name == "api.test"][-1]
+    return lines, {k: v for k, v in mgr.counters()[rid].items()
+                   if k.startswith("trajectory.readback")}
+
+
+@_finalize_cases
+def test_finalize_into_prepared_blocks_equals_finalize_without(
+        cut, with_attrs, dtype, source, depths):
+    """Records copied into prepared host blocks (trajectory.host_blocks, as
+    the API prepares them for a card's records) give the lines of the
+    read-back into new memory bit for bit; each line's arrays are row
+    views of the prepared blocks, and every block counts as ready."""
+    seeds, pts, vels, attrs, kw = _finalize_inputs(cut, with_attrs, dtype,
+                                                   depths)
+    cfg = mtt.TrajectorySettings(**kw)
+    wrap = torch.from_numpy if source == "tensor" else (lambda a: a)
+    args = (seeds, wrap(pts), wrap(vels), cfg)
+    kwargs = dict(attrs=None if attrs is None else wrap(attrs),
+                  with_attrs=with_attrs)
+    want = mtt.finalize_trajectories(*args, **kwargs)
+    blocks = mtt.trajectory.host_blocks(len(seeds), cfg.n_records,
+                                        with_attrs)
+    got, counts = _readback_counts(lambda: mtt.finalize_trajectories(
+        *args, **kwargs, host=_done(blocks)))
+    _assert_same_lines(got, want)
+    n_blocks = 4 if with_attrs else 2
+    assert counts == {"trajectory.readback_blocks": n_blocks,
+                      "trajectory.readback_ready": n_blocks}
+    views = {"points": "pts", "velocity": "vel", "attrs": "att",
+             "temperature": "ts", "salinity": "ts"}
+    for line in got:
+        for f, name in views.items():
+            if name in blocks:
+                assert np.shares_memory(getattr(line, f),
+                                        blocks[name].numpy()), f
+        assert not np.shares_memory(line.last_point, blocks["pts"].numpy())
+    assert not any(b.is_pinned() for b in blocks.values())
+
+
+@pytest.mark.parametrize("fault", ["missing", "shape", "dtype", "raised"])
+def test_finalize_falls_back_for_an_unfit_prepared_block(fault):
+    """A prepared block that is missing or of another shape or dtype takes
+    the read-back into new memory and counts as not ready, the others
+    their prepared blocks; a worker that raised sends every block to new
+    memory with a warning.  The lines are the same either way."""
+    seeds, pts, vels, attrs, kw = _finalize_inputs("mixed", True,
+                                                   np.float32, True)
+    cfg = mtt.TrajectorySettings(**kw)
+    args = (seeds, torch.from_numpy(pts), torch.from_numpy(vels), cfg)
+    kwargs = dict(attrs=torch.from_numpy(attrs), with_attrs=True)
+    want = mtt.finalize_trajectories(*args, **kwargs)
+    blocks = mtt.trajectory.host_blocks(len(seeds), cfg.n_records, True)
+    if fault == "missing":
+        del blocks["att"]
+    elif fault == "shape":
+        blocks["vel"] = torch.zeros(len(seeds), cfg.n_records, 3,
+                                    dtype=torch.float64)
+    elif fault == "dtype":
+        blocks["ts"] = blocks["ts"].float()
+    host = _done(exc=RuntimeError("no memory")) if fault == "raised" \
+        else _done(blocks)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        got, counts = _readback_counts(lambda: mtt.finalize_trajectories(
+            *args, **kwargs, host=host))
+    _assert_same_lines(got, want)
+    assert counts == {"trajectory.readback_blocks": 4,
+                      "trajectory.readback_ready": 0 if fault == "raised"
+                      else 3}
+    assert [issubclass(w.category, RuntimeWarning) for w in caught] == (
+        [True] if fault == "raised" else [])
+    if fault != "raised":
+        unfit = {"missing": "attrs", "shape": "velocity",
+                 "dtype": "temperature"}[fault]
+        for f, name in (("points", "pts"), ("velocity", "vel"),
+                        ("attrs", "att"), ("temperature", "ts")):
+            if name in blocks:
+                assert np.shares_memory(getattr(got[0], f),
+                                        blocks[name].numpy()) == (f != unfit)
 
 
 @pytest.mark.parametrize("kw", [

@@ -317,6 +317,110 @@ def test_cut_lines_counts_the_lines_with_a_non_finite_point(mgr):
     assert counts[off] == {}
 
 
+def _two_snapshot_app(case):
+    """A CPU app with the case's field as snapshots 1 and 2."""
+    mesh, raw, _, _ = case
+    a = papi.MOPSApp()
+    a.init("cpu", "fp64")
+    a.begin()
+    a.add_grid(mesh)
+    a.add_solution(1, raw)
+    a.add_solution(2, raw)
+    a.end()
+    return a
+
+
+def _prepare_as_for_a_card(monkeypatch):
+    """A CPU app prepares its requests' host blocks on its worker thread
+    as it does for records on a card."""
+    real = papi.MOPSApp._host_blocks
+    monkeypatch.setattr(
+        papi.MOPSApp, "_host_blocks",
+        lambda self, device, *a: real(self, torch.device("cuda"), *a))
+
+
+READBACK = ("trajectory.readback_blocks", "trajectory.readback_ready")
+
+
+def test_readback_counters_count_every_prepared_request(case, mgr,
+                                                        monkeypatch):
+    """A request whose host blocks were prepared counts its read-back
+    blocks and the ready ones, untraced and traced: two a streamline,
+    four a pathline, all ready; each waits for them once, inside
+    finalize."""
+    _prepare_as_for_a_card(monkeypatch)
+    _, _, seeds, cfg = case
+    a = _two_snapshot_app(case)
+    for pathline in (False, True):
+        a.active_attribute(*((1, 2) if pathline else (1,)))
+        run = a.run_pathline if pathline else a.run_streamline
+        run(cfg, seeds.copy())
+        with profile(activities=[ProfilerActivity.CPU]):
+            run(cfg, seeds.copy())
+        name = "api.pathline" if pathline else "api.streamline"
+        spans = mgr.spans()
+        counts = mgr.counters()
+        n = 4 if pathline else 2
+        for rid in [s.request for s in spans if s.name == name][-2:]:
+            assert {k: counts[rid][k] for k in READBACK} == dict.fromkeys(
+                READBACK, n)
+            fin, = _of(spans, rid, "trajectory.finalize")
+            wait, = _of(spans, rid, "trajectory.prefault_wait")
+            assert (wait.parent, wait.category) == (fin.id, "Other")
+    assert a._worker is not None
+
+
+def test_cpu_requests_prepare_nothing(case, mgr):
+    """Through the API on the CPU nothing is read back: no worker, no
+    prefault wait, no block counted ready."""
+    _, _, seeds, cfg = case
+    a = _two_snapshot_app(case)
+    for pathline in (False, True):
+        a.active_attribute(*((1, 2) if pathline else (1,)))
+        (a.run_pathline if pathline else a.run_streamline)(cfg, seeds.copy())
+        rid = _request_id(mgr.spans(), "api.pathline" if pathline
+                          else "api.streamline")
+        assert mgr.counters()[rid].get("trajectory.readback_ready", 0) == 0
+        assert not _of(mgr.spans(), rid, "trajectory.prefault_wait")
+    assert a._worker is None
+
+
+def test_prefault_wait_keeps_the_totals_and_the_categories(case, mgr,
+                                                           monkeypatch):
+    """With its host blocks prepared, a request's category totals still
+    equal its leaf time: Other holds advect.wait and
+    trajectory.prefault_wait, MemoryCopy the read-back, CPUCompute the cell
+    search and finalize less both spans nested in it."""
+    _prepare_as_for_a_card(monkeypatch)
+    _, _, seeds, cfg = case
+    a = _two_snapshot_app(case)
+    a.run_streamline(cfg, seeds.copy())
+    mtt.MOPS_ResetTiming()
+    a.run_streamline(cfg, seeds.copy())
+    spans = mgr.spans()
+    rid = _request_id(spans, "api.streamline")
+    mine = _of(spans, rid)
+    one = {s.name: s for s in mine}
+    assert set(one) == {
+        "api.streamline", "cellsearch.query", "advect.prepare",
+        "advect.loop", "advect.wait", "trajectory.prefault_wait",
+        "advect.readback", "trajectory.finalize"}
+    fin = one["trajectory.finalize"]
+    assert one["trajectory.prefault_wait"].parent == fin.id
+    assert one["advect.readback"].parent == fin.id
+    assert mtt.MOPS_GetTotalTime() == pytest.approx(
+        sum(s.leaf_ms() for s in mine if s.category is not None), rel=0.01)
+    assert mgr.category_time("Other") == pytest.approx(
+        one["advect.wait"].host_ms + one["trajectory.prefault_wait"].host_ms)
+    assert mgr.category_time("MemoryCopy") == pytest.approx(
+        one["advect.readback"].host_ms)
+    assert mgr.category_time("CPUCompute") == pytest.approx(
+        fin.leaf_ms() + one["cellsearch.query"].leaf_ms())
+    assert fin.leaf_ms() == pytest.approx(
+        fin.host_ms - one["advect.readback"].host_ms
+        - one["trajectory.prefault_wait"].host_ms)
+
+
 def test_window_miss_counter_equals_the_runs_misses(case, mgr, monkeypatch):
     mesh, raw, seeds, cfg = case
     sol = mtt.preprocess(mesh, raw, device="cpu")
