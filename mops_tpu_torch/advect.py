@@ -717,20 +717,26 @@ def run_graphed(st: Stepper, p: Particles,
     advance, the others by replays of one StepGraph captured at the first
     of them (per phase with ``ph``, which marks each phase) and dropped on
     return.  Counts each replay's kernel launches as the eager step would;
-    returns the steps replayed."""
+    returns the steps replayed.  The capture is the span advect.capture
+    (host time), and every call counts the graphs it captured under
+    advect.captures (one, or one a phase with ``ph``; 0 where every step
+    ran eagerly)."""
     graph, replayed = None, 0
     for i, kind in enumerate(step_plan(st.is_first, st.flags)):
         if kind == "eager":
             advance(st, p, i, ph)
             continue
         if graph is None:
-            graph = StepGraph(st, p, i, ph is not None)
+            with timer("advect.capture", "Preprocessing"):
+                graph = StepGraph(st, p, i, ph is not None)
         graph.replay(ph)
         if kind == "record":
             record(st, p, i, graph.records)
         if ph is not None:
             ph.mark()
         replayed += 1
+    TimerManager.instance().add(
+        "advect.captures", 0 if graph is None else len(graph.replays))
     if graph is not None:
         count_launches(graph.launches, replayed)
     return replayed
@@ -899,7 +905,9 @@ def run_advection(mesh: MPASMesh, front: SolutionFields,
     over the steps, and counts advect.steps and, on the window path,
     advect.window_misses and advect.window_clamp_misses (the per-particle
     counts, summed when read).  Every call counts advect.graph_steps, the
-    steps run by replay (0 on the eager loop).
+    steps run by replay (0 on the eager loop); a graphed loop also keeps
+    its capture as the span advect.capture and counts advect.captures
+    (run_graphed).
     """
     devices = [resolve_device(d) for d in (devices or [device])]
     real = mesh.dtype if dtype is None else dtype

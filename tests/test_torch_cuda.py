@@ -1291,3 +1291,47 @@ def test_graphed_detail_keeps_the_phases_and_the_kernels(card, monkeypatch):
     assert sum(extra.values()) == 2 * (len(advect.PHASES) - 1)
     assert sum(n for k, n in kernels[None].items()
                if "window_streamline_kernel" in k) == cfg.n_steps
+
+
+@pytest.mark.cuda
+def test_graphed_agent_job_equals_eager_with_one_capture(card, monkeypatch):
+    """The agent's default streamline job's shapes (the 56 seeds of its
+    8 x 8 grid at 10 m, a one-minute RK4 step, a record every six minutes)
+    at fp64 over 300 steps: the graphed loop's lines equal the eager
+    loop's bit for bit; the graphed request keeps one advect.capture span
+    and counts one captured graph, the eager one neither."""
+    from mops_tpu_torch.agent.task_templates import \
+        DEFAULT_STREAMLINE_CONFIG as agent
+    from mops_tpu_torch.utils.timer import TimerManager
+    mgr = TimerManager.instance()
+    mesh, sol, dev = card
+    seeds = mtt.seeding.generate_sample_points(mtt.SamplingSettings(
+        sample_range=tuple(agent["grid"]), lat_range=tuple(agent["lat_range"]),
+        lon_range=tuple(agent["lon_range"]), depth=agent["fixed_depth"]))
+    assert len(seeds) == 56
+    cells = mtt.CellSearch(mesh).query(seeds)
+    cfg = mtt.TrajectorySettings(
+        delta_t=agent["delta_minutes"] * 60, simulation_duration=300 * 60,
+        record_t=agent["record_every_minutes"] * 60,
+        depth=agent["fixed_depth"], fail_mode=mtt.FailMode.ZERO)
+    monkeypatch.setattr(advect, "WINDOW_LAYERS", W)
+    runs, counts, captures = {}, {}, {}
+    for graph in (False, None):
+        with mgr.request("api.test"):
+            runs[graph] = mtt.run_advection(mesh, sol, seeds, cells, cfg,
+                                            dtype=torch.float64, graph=graph)
+        assert advect.LAST_RESOLVED["kernel"] == "k3"
+        rid = [s for s in mgr.spans() if s.name == "api.test"][-1].request
+        counts[graph] = mgr.counters()[rid]
+        captures[graph] = [s for s in mgr.spans() if s.request == rid
+                           and s.name == "advect.capture"]
+    for name in ("points", "velocities", "final_position", "final_depth",
+                 "final_cell", "alive", "window_misses",
+                 "window_clamp_misses"):
+        assert _same_bits(getattr(runs[False], name),
+                          getattr(runs[None], name)), name
+    assert counts[None]["advect.captures"] == len(captures[None]) == 1
+    assert "advect.captures" not in counts[False] and not captures[False]
+    assert counts[None]["advect.graph_steps"] == \
+        cfg.n_steps - advect.GRAPH_WARM_STEPS
+    assert counts[None][sk.F64_LAUNCHES + "k3"] == cfg.n_steps

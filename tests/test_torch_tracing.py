@@ -609,7 +609,9 @@ def _graph_step_pct():
 def test_graph_steps_read_zero_on_the_cpu_and_on_a_pathline(case, mgr):
     """A CPU run and a pathline keep the eager loop: each request counts
     advect.graph_steps 0, traced or not, and graph_step_pct reads 0 over
-    the profiled requests that stepped."""
+    the profiled requests that stepped; they capture nothing (no
+    advect.capture span, no advect.captures count), so capture_ms reads
+    nothing."""
     mesh, raw, seeds, cfg = case
     a = papi.MOPSApp()
     a.init("cpu", "fp64")
@@ -631,11 +633,15 @@ def test_graph_steps_read_zero_on_the_cpu_and_on_a_pathline(case, mgr):
         assert counts[untraced]["advect.graph_steps"] == 0
         assert counts[traced]["advect.graph_steps"] == 0
         assert counts[traced]["advect.steps"] == cfg.n_steps
+        for r in (untraced, traced):
+            assert "advect.captures" not in counts[r]
+            assert not _of(mgr.spans(), r, "advect.capture")
         from benchmark import tracing
         ctx = tracing.Context([], [], [tracing.Request(
             0, "pathline" if pathline else "streamline", 0, 1,
             steps=cfg.n_steps)], {}, {})
         assert _graph_step_pct()(ctx) == 0.0
+        assert _capture_ms()(ctx) is None
 
 
 def test_graph_step_pct_reads_the_replayed_share(case, mgr):
@@ -671,3 +677,74 @@ def test_graph_step_pct_is_none_without_spans_or_its_counter(mgr,
                                                  "stop": None})
     monkeypatch.setitem(sys.modules, "mops_tpu_torch.utils.timer", old)
     assert _graph_step_pct()(_streamline_ctx()) is None
+
+
+def _capture_ms():
+    from benchmark import tracing
+    return tracing.load_reader("capture_ms")
+
+
+def _graphed_request(case, mgr, traced):
+    """One run_advection(graph=True) on the CPU inside a request (under a
+    profiler if ``traced``); returns the request id."""
+    mesh, raw, seeds, cfg = case
+    sol = mtt.preprocess(mesh, raw, device="cpu")
+    cells = mtt.CellSearch(mesh).query(seeds)
+    with contextlib.ExitStack() as stack:
+        if traced:
+            stack.enter_context(profile(activities=[ProfilerActivity.CPU]))
+        with mgr.request("api.streamline"):
+            advect.run_advection(mesh, sol, seeds, cells, cfg, device="cpu",
+                                 graph=True)
+    return _request_id(mgr.spans(), "api.streamline")
+
+
+@pytest.mark.parametrize("traced", [False, True], ids=["untraced", "detail"])
+def test_capture_is_spanned_and_counted_once_a_graphed_call(case, mgr,
+                                                            traced):
+    """A graphed run_advection keeps one advect.capture span (host time,
+    Preprocessing, inside advect.loop) and counts the graphs it captured
+    under advect.captures: one, or under detail one a phase (the record
+    phase stays eager)."""
+    rid = _graphed_request(case, mgr, traced)
+    mine = _of(mgr.spans(), rid)
+    capture = [s for s in mine if s.name == "advect.capture"]
+    loop = [s for s in mine if s.name == "advect.loop"]
+    assert len(capture) == 1 and len(loop) == 1
+    assert capture[0].parent == loop[0].id
+    assert capture[0].category == "Preprocessing"
+    assert capture[0].device_ms is None and capture[0].host_ms > 0
+    assert capture[0].detail == traced
+    graphs = len(advect.PHASES) - 1 if traced else 1
+    assert mgr.counters()[rid]["advect.captures"] == graphs
+
+
+def test_capture_ms_reads_the_profiled_requests_span(case, mgr):
+    """capture_ms is the profiled requests' advect.capture host ms over
+    their count; an unprofiled graphed request is left out."""
+    _graphed_request(case, mgr, traced=False)
+    rid = _graphed_request(case, mgr, traced=True)
+    span = [s for s in _of(mgr.spans(), rid) if s.name == "advect.capture"]
+    assert _capture_ms()(_streamline_ctx()) == span[0].host_ms > 0
+
+
+def test_capture_ms_is_none_without_spans_or_captures(mgr, monkeypatch):
+    """None where the program records no spans (a name-keyed recorder) or
+    its profiled requests count no captures (a program without the span);
+    a count of captures that no span timed raises."""
+    import sys
+    import types
+    with profile(activities=[ProfilerActivity.CPU]):
+        with mgr.request("api.streamline"):
+            mgr.add("advect.graph_steps", 3)
+    assert _capture_ms()(_streamline_ctx()) is None
+    with profile(activities=[ProfilerActivity.CPU]):
+        with mgr.request("api.streamline"):
+            mgr.add("advect.captures", 1)
+    with pytest.raises(RuntimeError, match="advect.capture"):
+        _capture_ms()(_streamline_ctx())
+    old = types.ModuleType("mops_tpu_torch.utils.timer")
+    old.TimerManager = type("TimerManager", (), {"start": None,
+                                                 "stop": None})
+    monkeypatch.setitem(sys.modules, "mops_tpu_torch.utils.timer", old)
+    assert _capture_ms()(_streamline_ctx()) is None
